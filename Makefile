@@ -1,6 +1,6 @@
 # Developer entry points (reference analog: Makefile build/develop/test,
 # /root/reference/Makefile:5-13).
-.PHONY: develop test test-fast bench clean
+.PHONY: develop test test-fast bench bench-suite smoke clean
 
 develop:
 	pip install -e .
@@ -16,6 +16,10 @@ bench:
 
 bench-suite:
 	python tests/benchmark.py
+
+# the main path on a GPU; exits non-zero without one
+smoke:
+	python chip_smoke.py
 
 clean:
 	rm -rf build dist *.egg-info

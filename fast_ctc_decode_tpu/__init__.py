@@ -1,4 +1,4 @@
-"""fast_ctc_decode_tpu — a TPU-native CTC decoding engine.
+"""fast_ctc_decode_tpu — a CTC decoding engine on JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 nanoporetech/fast-ctc-decode (reference mounted at /root/reference):

@@ -4,7 +4,7 @@ Mirrors the six PyO3 entry points of the reference binding layer
 (/root/reference/src/lib.rs:170-578) — same signatures, defaults, argument
 validation (messages included), and exception mapping (ValueError for
 precondition failures before the kernel runs, RuntimeError for search
-failures).  Under the hood every call runs the TPU-native device kernels and
+failures).  Under the hood every call runs the JAX device kernels and
 assembles ragged strings host-side.
 
 The reference aborts the process (panic=abort) on a handful of internal
@@ -128,7 +128,7 @@ def beam_search(
         (this shows up on engineered fixtures — e.g. the reference's 10x3
         WASM golden — so it cannot be the parity default), and exact float
         ties can break differently.  Use it (or the batch pipeline, which
-        defaults to the even faster fused Pallas kernel) when throughput
+        runs the fused Triton kernel on the GPU) when throughput
         matters and reference path parity does not.
     Combining ``max_nodes`` with ``engine="fast"`` is an error (only the
     exact engine has a node budget)."""
@@ -162,37 +162,14 @@ def beam_search(
     elif engine == "exact":
         if max_nodes is None:
             max_nodes = beam_ops.default_max_nodes(T, beam_size, A1 - 1)
-        out = None
-        import jax as _jax
-
-        from .ops import beam_exact_pallas as bxp_ops
-
-        if _jax.default_backend() == "tpu" and bxp_ops.exact_pallas_ok(
-            int(beam_size), A1 - 1
-        ):
-            # fused tree kernel (same bit-exact semantics, ~60x the XLA
-            # scan engine); node-budget overflow falls through to XLA
-            kn = min(int(max_nodes), bxp_ops.DEFAULT_KERNEL_NODES)
-            kout = bxp_ops.beam_search_exact_pallas_batch(
-                network_output[None],
-                np.full((1,), T, np.int32),
-                np.float32(beam_cut_threshold),
-                beam_size=int(beam_size),
-                collapse_repeats=bool(collapse_repeats),
-                max_nodes=kn,
-            )
-            kout = {k: np.asarray(v)[0] for k, v in kout.items()}
-            if int(kout["err"]) != errors.NODE_OVERFLOW:
-                out = kout
-        if out is None:
-            out = beam_ops.beam_search_device(
-                network_output,
-                np.int32(T),
-                np.float32(beam_cut_threshold),
-                beam_size=int(beam_size),
-                collapse_repeats=bool(collapse_repeats),
-                max_nodes=int(max_nodes),
-            )
+        out = beam_ops.beam_search_device(
+            network_output,
+            np.int32(T),
+            np.float32(beam_cut_threshold),
+            beam_size=int(beam_size),
+            collapse_repeats=bool(collapse_repeats),
+            max_nodes=int(max_nodes),
+        )
     else:
         raise ValueError(f"unknown engine {engine!r}")
     return _beam_result_to_seq_path(
@@ -286,38 +263,14 @@ def crf_beam_search(
     elif engine == "exact":
         if max_nodes is None:
             max_nodes = beam_ops.default_max_nodes(T, beam_size, A)
-        out = None
-        import jax as _jax
-
-        from .ops import beam_exact_pallas as bxp_ops
-
-        S = network_output.shape[1]
-        if (
-            _jax.default_backend() == "tpu"
-            and bxp_ops.exact_pallas_ok(int(beam_size), A)
-            and S <= 32768
-        ):
-            kn = min(int(max_nodes), bxp_ops.DEFAULT_KERNEL_NODES)
-            kout = bxp_ops.crf_beam_search_exact_pallas_batch(
-                network_output[None],
-                np.asarray(init_state, np.float32)[None],
-                np.full((1,), T, np.int32),
-                np.float32(beam_cut_threshold),
-                beam_size=int(beam_size),
-                max_nodes=kn,
-            )
-            kout = {k: np.asarray(v)[0] for k, v in kout.items()}
-            if int(kout["err"]) != errors.NODE_OVERFLOW:
-                out = kout
-        if out is None:
-            out = crf_ops.crf_beam_search_device(
-                network_output,
-                init_state,
-                np.int32(T),
-                np.float32(beam_cut_threshold),
-                beam_size=int(beam_size),
-                max_nodes=int(max_nodes),
-            )
+        out = crf_ops.crf_beam_search_device(
+            network_output,
+            init_state,
+            np.int32(T),
+            np.float32(beam_cut_threshold),
+            beam_size=int(beam_size),
+            max_nodes=int(max_nodes),
+        )
     else:
         raise ValueError(f"unknown engine {engine!r}")
     return _beam_result_to_seq_path(

@@ -1,11 +1,11 @@
-"""Error model for the TPU CTC decoding engine.
+"""Error model for the device CTC decoding engine.
 
 The reference (``/root/reference/src/lib.rs:36-58``) models runtime search
 failures as a Rust enum ``SearchError { RanOutOfBeam, IncomparableValues,
 InvalidEnvelope }`` that the binding layer maps to ``RuntimeError``; argument
 violations raise ``ValueError`` before the kernel runs.
 
-On TPU nothing can raise inside a jitted computation, so kernels return a
+Nothing can raise inside a jitted computation, so kernels return a
 per-read int32 *status code* instead (0 = OK).  The thin host API layer maps
 a non-zero status back to the exception the reference would have raised, with
 byte-identical messages, preserving the reference's exception contract for

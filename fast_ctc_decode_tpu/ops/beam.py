@@ -1,4 +1,4 @@
-"""CTC prefix beam search, TPU-native (the flagship kernel).
+"""CTC prefix beam search on the flattened suffix tree (the bit-exact engine).
 
 Reference semantics: /root/reference/src/search.rs:159-301 (`beam_search`) and
 src/search.rs:38-157 (`crf_beam_search`).  The reference keeps a beam of
@@ -6,7 +6,7 @@ src/search.rs:38-157 (`crf_beam_search`).  The reference keeps a beam of
 tree, working in *linear* f32 probability space with a per-step division by
 the top beam score to avoid underflow.
 
-TPU-first redesign (not a port):
+Accelerator-first redesign (not a port):
 
  - The suffix tree is flattened to preallocated device arrays
    ``parent/label/time [max_nodes]`` plus a dense child table

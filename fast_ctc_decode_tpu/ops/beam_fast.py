@@ -412,7 +412,9 @@ def beam_search_fast_device(
     }
 
 
-@functools.partial(jax.jit, static_argnames=("beam_size", "collapse_repeats"))
+@functools.partial(
+    jax.jit, static_argnames=("beam_size", "collapse_repeats", "raw")
+)
 def beam_search_fast_batch(
     probs: jnp.ndarray,
     lengths: jnp.ndarray,
@@ -420,9 +422,12 @@ def beam_search_fast_batch(
     *,
     beam_size: int,
     collapse_repeats: bool = True,
+    raw: bool = False,
 ):
     """Batched fast beam over [B, T, A+1] + [B] lengths: scan-outside /
-    vmap-inside decode plus the gather-free batched traceback."""
+    vmap-inside decode plus the gather-free batched traceback.
+    ``raw=True`` returns the decode's id log ([T, B, K] entry-tip ids),
+    final head ids and status codes instead of the traceback."""
     B, T, A1 = probs.shape
     A = A1 - 1
     K = beam_size
@@ -445,6 +450,8 @@ def beam_search_fast_batch(
     carry, beam_ids = jax.lax.scan(
         step, carry0, (probs_t, jnp.arange(T, dtype=jnp.int32))
     )  # beam_ids: [T, B, K]
+    if raw:
+        return {"ids_log": beam_ids, "fin": carry.id[:, 0], "err": carry.err}
     labels_rev, times_rev, count = _traceback_scan_batch_tbk(
         carry.id[:, 0], beam_ids, T, K, A
     )
@@ -460,8 +467,8 @@ def _crf_fast_step(carry, xs, *, A, S, K, length, threshold):
     (p, t) = xs  # [S, A+1] or flat [S*(A+1)]
     active = (t < length) & (carry.err == errors.OK)
 
-    # per-tip state row selection as a one-hot masked sum: XLA gathers on
-    # TPU lower to something O(B*S)-slow under vmap, while this fuses into
+    # per-tip state row selection as a one-hot masked sum: a vmapped XLA
+    # gather can lower to something O(B*S)-slow, while this fuses into
     # a masked reduction; `where` (not multiply) keeps NaN confined to the
     # selected row, matching the reference's plain row indexing
     p3 = p.reshape(S, A + 1)
@@ -580,28 +587,25 @@ def _traceback_scan_batch(fin, ids_log, T, K, A, *, tips_major=True):
     """Batched traceback over the id log without gathers.
 
     ``_traceback_positional`` walks parent pointers with a per-iteration
-    ``jnp.take`` — under vmap that is a batched gather per step, which
-    dominates the whole fused-kernel pipeline (~48 ms of a 58 ms batch at
-    B=4096).  This version exploits that parents have strictly smaller
-    creation steps than children: ONE backward scan over t visits every
-    chain node in leaf-to-root order.  Per step the parent read is a
-    K-way one-hot select over the step's tip ids (no gather) and the
-    step's emit is the scan's stacked ``ys`` row — contiguous [T, B]
-    writes; the round-3 version wrote [B, 1] columns into a [B, T] carry
-    via dynamic_update_slice, a strided-HBM pattern that alone cost
-    ~28 ms of the 138 ms headline batch.
+    ``jnp.take`` — under vmap that is a batched gather per step.  This
+    version exploits that parents have strictly smaller creation steps
+    than children: ONE backward scan over t visits every chain node in
+    leaf-to-root order.  Per step the parent read is a K-way one-hot
+    select over the step's tip ids (no gather) and the step's emit is the
+    scan's stacked ``ys`` row — contiguous [T, B] writes, not [B, 1]
+    columns scattered into a [B, T] carry.
 
     Compaction packs (no-emit flag, scan step i, label+1) into ONE i32
     key per cell — the scan visits t descending, so ascending-key order
     is exactly "emits leaf-first, gaps last" — and runs a single-operand
-    unstable sort (keys are unique: i is); the previous 3-operand stable
-    sort was ~27 ms at B=32768, ~2.5x this one.  Labels and times are
-    recovered from the key bits (time = T-1-i), so the result is
-    bit-identical to the buffer-and-stable-sort form.
+    unstable sort (keys are unique: i is) instead of a 3-operand stable
+    sort.  Labels and times are recovered from the key bits (time =
+    T-1-i), so the result is bit-identical to the buffer-and-stable-sort
+    form.
 
     Args:
       fin: [B] i32 final beam-head ids.
-      ids_log: per-step entry-tip ids — [T, KP, B] (the Pallas kernels'
+      ids_log: per-step entry-tip ids — [T, K, B] (the Triton kernel's
         layout, ``tips_major=True``) or [T, B, K] (the scan engines',
         ``tips_major=False``); neither needs a transpose.
       T, K, A: static dims.
@@ -666,8 +670,8 @@ def _key_bits(T, A):
 def _sort_unpack_keys(key_bt, T, lab_bits, t_bits):
     """Sort [B, T] packed keys and unpack (labels_rev, times_rev).
 
-    Key layout (built by _traceback_scan_batch's scan or the Pallas
-    traceback kernel): ``no_emit_gap | (i << lab_bits) | (label + 1)``
+    Key layout (built by _traceback_scan_batch's scan):
+    ``no_emit_gap | (i << lab_bits) | (label + 1)``
     with i the backward scan step (t = T - 1 - i), so ascending order is
     emits leaf-first, padding last.  Keys are unique per row (i is).
     """

@@ -1,32 +1,37 @@
-"""Pallas TPU kernel for CTC prefix beam search — the speed-of-light path.
+"""Fused CTC prefix beam search for the GPU: Pallas kernels through Triton.
 
 Same algorithm and semantics as ops/beam_fast.py (hash-identity beam,
 analytic merge, (max, min-id) top-K, position-coded node ids — see that
 module's docstring for the exactness contract vs the reference
-/root/reference/src/search.rs:159-301), but the whole T-loop runs inside
-one fused kernel:
+search.rs:159-301), but the whole T loop runs inside one kernel:
 
- - The scan in beam_fast.py issues ~250 XLA ops per timestep from a while
-   loop; at ~2-3 us of dispatch/fusion-boundary cost per op the decode is
-   op-bound, not compute- or bandwidth-bound.  Here every per-step value
-   is a VMEM-resident (8/16/40, B_TILE) vector register, so a step is a
-   few hundred back-to-back VPU issues with zero HBM traffic.
+ - ``beam_fast`` is a ``lax.scan`` whose body is a few hundred XLA ops
+   per time step, so its decode pays kernel launches and fusion
+   boundaries every step.  Here one program owns ``Bt`` reads, walks all
+   T steps in a ``fori_loop`` and keeps the beam as loop carries in
+   registers; the only device-memory traffic is the posteriors read once
+   and the per-step beam-id log written once.
 
- - Layout: reads ride the 128-wide lane axis (B_TILE lanes per program),
-   beam slots ride sublanes (K=5 padded to 8).  Posteriors stream in
-   pre-transposed as [T, A+1, B] blocks of TB steps (Pallas double-buffers
-   the DMA); the only outputs are the [T, KP, B] per-step beam-id log (for
-   traceback), the final best id, and the per-read status code.
+ - Layout: reads ride the minor axis, one read per lane.  Posteriors come
+   in pre-transposed as ``[T, A+1, B]`` and the id log goes out as
+   ``[T, K, B]``, so every load and store is contiguous across threads.
+   The K beam slots and the K*A extension candidates are separate ``[Bt]``
+   vectors unrolled in Python: every per-read operation is lane-local, no
+   value crosses threads.
 
- - Grid = (B/B_TILE, T/TB); the T axis is the innermost (sequential on
-   TPU), with beam state persisting in scratch across T blocks and
-   re-initialized at block 0.
+ - Parent-hash bookkeeping: a tip stores its PARENT's hash and its last
+   label, and its own hash is recomputed once per step.  Extension
+   (k, a) targets tip j iff ``h[k] == hp[j]`` and ``a == ll[j]``; since
+   each hash round is a bijection of the hash for a fixed label, this is
+   exactly beam_fast's ``mix(h[k], a) == h[j]`` test, at K*K instead of
+   K*A*K compares and without per-candidate mixes.
 
-The traceback over the id log is fused too (``_traceback_kernel``):
-the backward parent walk, key pack, and transpose run in one Pallas
-kernel over the beam kernel's own output layout, with a single packed
-XLA sort compacting the emits (``beam_fast._sort_unpack_keys``); the
-scan-based XLA walk remains as the wide-key fallback.
+The traceback (``_traceback_kernel``) walks the id log backward per read
+and writes each emit straight to its place in the leaf-first
+``labels_rev`` / ``times_rev`` rows, so no sort is needed to compact it.
+
+Both kernels take ``interpret=True`` only from tests; on the GPU they
+compile through Triton (``backend="triton"``).
 """
 
 from __future__ import annotations
@@ -38,1103 +43,370 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .. import errors
-from .beam_fast import _traceback_positional, _traceback_scan_batch
 
 _I32_MAX = np.iinfo(np.int32).max
 NEG_INF = np.float32(-np.inf)
 POS_INF = np.float32(np.inf)
 
 # int32 hashing: bit-identical to beam_fast's uint32 lanes (wrapping mul,
-# xor, logical shift) — Mosaic prefers int vectors.
+# xor, logical shift)
 _SEED1 = np.int32(np.uint32(0x9E3779B9).view(np.int32))
 _SEED2 = np.int32(np.uint32(0x85EBCA6B).view(np.int32))
+_MIX1 = (0xC2B2AE35, 0x165667B1)
+_MIX2 = (0x27D4EB2F, 0x9E3779B1)
 
 
 def _u(x):
     return np.uint32(x).astype(np.int32)
 
 
-def _mix_i32(h, lbl, mult_u, add_u):
-    # (lbl * mult + add) folded host-side in uint32 wraparound; lbl static
-    c = np.uint32((int(lbl) * int(mult_u) + int(add_u)) & 0xFFFFFFFF)
-    mult = _u(mult_u)
-    z = h ^ c.astype(np.int32)
-    z = z * mult
+def _mix(h, lbl, mult_add):
+    """beam_fast._mix on int32 lanes: ``lbl`` is a per-lane label."""
+    mult, add = _u(mult_add[0]), _u(mult_add[1])
+    z = (h ^ (lbl * mult + add)) * mult
     return z ^ jax.lax.shift_right_logical(z, np.int32(16))
 
 
-def _mix1_i32(h, lbl):
-    return _mix_i32(h, lbl, 0xC2B2AE35, 0x165667B1)
+def _div_rn(x, y, interpret):
+    """IEEE round-to-nearest f32 division.
+
+    Triton lowers ``/`` on f32 to the approximate ``div.full.f32``; the
+    renormalization must round like XLA's division (and the reference's)
+    or beam scores drift apart over T steps."""
+    if interpret:
+        return x / y
+    (q,) = plt.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;",
+        args=[x, y],
+        constraints="=r,r,r",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape, jnp.float32)],
+    )
+    return q
 
 
-def _mix2_i32(h, lbl):
-    return _mix_i32(h, lbl, 0x27D4EB2F, 0x9E3779B1)
+def _tree(op, xs):
+    """Balanced reduction of a list of [Bt] vectors (short dependency
+    chains for the SM's schedulers)."""
+    xs = list(xs)
+    while len(xs) > 1:
+        nxt = [op(xs[i], xs[i + 1]) for i in range(0, len(xs) - 1, 2)]
+        if len(xs) % 2:
+            nxt.append(xs[-1])
+        xs = nxt
+    return xs[0]
 
 
-def _mix_c_plane(a_plane, mult_u, add_u):
-    """Per-row mix constant ``a * mult + add`` as one precomputed plane.
-
-    i32 mul/add wrap exactly like the uint32 arithmetic _mix_i32 folds on
-    host, so ``_mix_plane(h, _mix_c_plane(a_of_r, m, c), m)`` is
-    bit-identical to the per-label ``where(a_of_r == a, _mix_i32(h, a))``
-    sweep — at 4 vector ops per hash instead of A selects + A mixes.
-    """
-    return a_plane * _u(mult_u) + _u(add_u)
-
-
-def _mix_plane(h, c_plane, mult_u):
-    z = (h ^ c_plane) * _u(mult_u)
-    return z ^ jax.lax.shift_right_logical(z, np.int32(16))
+def _pick(conds, vals, default):
+    """``vals[i]`` where ``conds[i]`` (at most one true), else default."""
+    out = default
+    for c, v in zip(conds, vals):
+        out = jnp.where(c, v, out)
+    return out
 
 
 def _beam_kernel(
-    thr_ref,  # SMEM (1, 1) f32
-    probs_ref,  # VMEM (TB, A1, Bt) f32
-    len_ref,  # VMEM (1, Bt) i32
-    ids_out_ref,  # VMEM (TB, KP, Bt) i32
-    fin_ref,  # VMEM (1, Bt) i32
-    err_out_ref,  # VMEM (1, Bt) i32
-    # scratch
-    lab_ref,  # (KP, Bt) f32
-    gap_ref,  # (KP, Bt) f32
-    h1_ref,  # (KP, Bt) i32
-    h2_ref,  # (KP, Bt) i32
-    ll_ref,  # (KP, Bt) i32  last label (-1 root)
-    id_ref,  # (KP, Bt) i32  (-1 root, -2 empty)
-    va_ref,  # (KP, Bt) i32  validity 0/1
-    er_ref,  # (1, Bt) i32
+    thr_ref,  # (1,) f32
+    probs_ref,  # (T, A1, Bt) f32 block of [T, A1, B]
+    len_ref,  # (Bt,) i32
+    ids_ref,  # out (T, K, Bt) i32: entry-tip ids per step
+    fin_ref,  # out (Bt,) i32: best tip id after the last step
+    err_ref,  # out (Bt,) i32: status code
     *,
     K: int,
-    KP: int,
     A: int,
-    TB: int,
+    T: int,
     collapse: bool,
+    interpret: bool,
 ):
-    j = pl.program_id(1)
-    Bt = len_ref.shape[1]
+    Bt = len_ref.shape[0]
     KA = np.int32(K * A)
+    thr = thr_ref[0]
+    lens = len_ref[...]
+    f0 = jnp.zeros((Bt,), jnp.float32)
+    i0 = jnp.zeros((Bt,), jnp.int32)
+    imax = jnp.full((Bt,), _I32_MAX, jnp.int32)
 
-    @pl.when(j == 0)
-    def _init():
-        row0 = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0) == 0
-        lab_ref[:] = jnp.zeros((KP, Bt), jnp.float32)
-        gap_ref[:] = jnp.where(row0, 1.0, 0.0).astype(jnp.float32)
-        h1_ref[:] = jnp.where(row0, _SEED1, 0).astype(jnp.int32)
-        h2_ref[:] = jnp.where(row0, _SEED2, 0).astype(jnp.int32)
-        ll_ref[:] = jnp.full((KP, Bt), -1, jnp.int32)
-        id_ref[:] = jnp.where(row0, -1, -2).astype(jnp.int32)
-        va_ref[:] = jnp.where(row0, 1, 0).astype(jnp.int32)
-        er_ref[:] = jnp.zeros((1, Bt), jnp.int32)
+    # slot 0 is the root (id -1, gap 1); the rest are empty (id -2)
+    carry0 = (
+        [f0] * K,  # lab
+        [f0 + 1.0] + [f0] * (K - 1),  # gap
+        [i0] * K,  # hp1: parent hash, lane 1
+        [i0] * K,  # hp2
+        [i0 - 1] * K,  # ll: last label, -1 at the root
+        [i0 - 1] + [i0 - 2] * (K - 1),  # id
+        [i0 + 1] + [i0] * (K - 1),  # valid 0/1
+        i0,  # err
+    )
 
-    thr = thr_ref[0, 0]
-    lens = len_ref[:]  # (1, Bt)
-    slot = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0)
-    in_beam = slot < K
-    # [KAP, Bt] candidate plane: row r = (tip k, label a), k-major
-    KAP = max(-(-KA // 8) * 8, 8)
-    row_i = jax.lax.broadcasted_iota(jnp.int32, (KAP, Bt), 0)
-    k_of_r = row_i // np.int32(A)
-    a_of_r = row_i % np.int32(A)
-    cand_in = row_i < KA
-    c1_plane = _mix_c_plane(a_of_r, 0xC2B2AE35, 0x165667B1)
-    c2_plane = _mix_c_plane(a_of_r, 0x27D4EB2F, 0x9E3779B1)
-
-    def expand_k(x_kp, fill=0):
-        """[KP, Bt] per-tip values -> [KAP, Bt] per-(k, a) candidate rows."""
-        out = jnp.full((KAP, Bt), fill, x_kp.dtype)
+    def step(t, carry):
+        lab, gap, hp1, hp2, ll, idv, va, err = carry
         for k in range(K):
-            out = jnp.where(k_of_r == k, x_kp[k : k + 1, :], out)
-        return out
+            ids_ref[t, k, :] = idv[k]
+        active = (t < lens) & (err == 0)
+        p0 = probs_ref[t, 0, :]
+        pl_ = [probs_ref[t, 1 + a, :] for a in range(A)]
+        valid = [v != 0 for v in va]
+        lg = [lab[k] + gap[k] for k in range(K)]
+        root = [l < 0 for l in ll]
+        h1 = [jnp.where(root[k], _SEED1, _mix(hp1[k], ll[k], _MIX1))
+              for k in range(K)]
+        h2 = [jnp.where(root[k], _SEED2, _mix(hp2[k], ll[k], _MIX2))
+              for k in range(K)]
+        # q[k]: posterior of tip k's last label (0 at the root)
+        q = [_pick([ll[k] == a for a in range(A)], pl_, f0) for k in range(K)]
 
-    def step(jt, _):
-        t = j * TB + jt  # scalar i32
-        err = er_ref[:]
-        active = (t < lens) & (err == 0)  # (1, Bt)
-
-        lab = lab_ref[:]
-        gap = gap_ref[:]
-        h1 = h1_ref[:]
-        h2 = h2_ref[:]
-        lastlab = ll_ref[:]
-        idv = id_ref[:]
-        valid = (va_ref[:] != 0) & in_beam
-
-        # log the expanding beam's ids for traceback
-        ids_out_ref[jt] = idv
-
-        row = probs_ref[jt]  # (A1, Bt)
-        p0 = row[0:1, :]  # (1, Bt)
-        lg = lab + gap
-        gap_pos = gap > 0.0
-
-        # ---- candidate-plane expansion (all K*A at once) ----
-        plab_r = jnp.zeros((KAP, Bt), jnp.float32)
-        for a in range(A):
-            plab_r = jnp.where(a_of_r == a, row[1 + a : 2 + a, :], plab_r)
-        h1e, h2e = expand_k(h1), expand_k(h2)
-        th1 = _mix_plane(h1e, c1_plane, 0xC2B2AE35)
-        th2 = _mix_plane(h2e, c2_plane, 0x27D4EB2F)
-        valid_r = (expand_k(va_ref[:]) != 0) & cand_in
-        pushed = valid_r & ~(plab_r < thr)
-        if collapse:
-            is_rep_r = expand_k(lastlab, -9) == a_of_r
-        else:
-            is_rep_r = jnp.zeros((KAP, Bt), bool)
-        gap_e = expand_k(gap)
-        m_ext = jnp.where(is_rep_r, gap_e, expand_k(lg)) * plab_r
-
-        # ---- matching: extension (k, a) targets tip jj iff its child hash
-        # equals jj's own hash (beam_fast.py) ----
-        match = []
-        matched = jnp.zeros((KAP, Bt), bool)
-        for jj in range(K):
-            m = (
-                (th1 == h1[jj : jj + 1, :])
-                & (th2 == h2[jj : jj + 1, :])
-                & (a_of_r == lastlab[jj : jj + 1, :])
-                & valid[jj : jj + 1, :]
-            )
-            match.append(m)
-            matched = matched | m
-
-        push_ext = pushed & (~is_rep_r | matched | (gap_e > 0.0))
-
-        # recv[jj]: the unique arrival into tip jj (sum over the match mask)
-        recv = jnp.zeros((KP, Bt), jnp.float32)
-        recv_any = jnp.zeros((KP, Bt), bool)
-        for jj in range(K):
-            sel = match[jj] & push_ext
-            acc = jnp.sum(jnp.where(sel, m_ext, 0.0), axis=0, keepdims=True)
-            got = jnp.any(sel, axis=0, keepdims=True)
-            rmask = slot == jj
-            recv = jnp.where(rmask, acc, recv)
-            recv_any = recv_any | (rmask & got)
-
-        # ---- stay / blank ----
-        if collapse:
-            p_stay = jnp.zeros((KP, Bt), jnp.float32)
-            for a in range(A):
-                p_stay = p_stay + jnp.where(
-                    lastlab == a, row[1 + a : 2 + a, :], 0.0
-                )
-            stay_push = valid & (lastlab >= 0) & ~(p_stay < thr)
-            stay_lab = jnp.where(stay_push, lab * p_stay, 0.0)
-        else:
-            stay_push = jnp.zeros((KP, Bt), bool)
-            stay_lab = jnp.zeros((KP, Bt), jnp.float32)
-
-        blank_push = valid & (p0 > thr)
-        blank_gap = jnp.where(blank_push, lg * p0, 0.0)
-
-        tip_lab = stay_lab + recv
-        tip_gap = blank_gap
-        tip_valid = blank_push | stay_push | recv_any
-
-        # ---- candidate table: rows 0..KP-1 = tips, KP.. = fresh ----
-        def key_of(v, tot):
-            return jnp.where(
-                v, jnp.where(jnp.isnan(tot), POS_INF, tot + 0.0), NEG_INF
-            )
-
-        fresh_valid = push_ext & ~matched
-        fresh_id = t * KA + k_of_r * np.int32(A) + a_of_r
-        tip_tot = tip_lab + tip_gap
-        m_ext_v = jnp.where(fresh_valid, m_ext, 0.0)
-        c_key = jnp.concatenate(
-            [key_of(tip_valid, tip_tot), key_of(fresh_valid, m_ext_v)]
-        )  # (KP + KAP, Bt)
-        c_id = jnp.concatenate([idv, fresh_id])
-
-        if K == 1:
-            # the rounds can't tell "1 candidate" from ">= 2" with a
-            # single round — count explicitly (reference NaN semantics
-            # raise only when >= 2 candidates are actually compared)
-            c_valid = c_key > NEG_INF  # (valid NaN totals map to +inf)
-            cnt = jnp.sum(jnp.where(c_valid, 1, 0), axis=0, keepdims=True)
-
-        # ---- top-K selection: K rounds of (max, tie -> min id) ----
-        # The min-id pass materializes the chosen id, and the
-        # position-coded id (t*K*A + k*A + a) carries the last label in
-        # its low bits (root id -1 -> -1).  Field picks are split by
-        # region (tips 0..KP-1, fresh KP..) — the chosen row lives in
-        # exactly one, so the field is the sum of two disjoint masked
-        # reductions (and gap needs only the tip region: fresh gap = 0).
-        sel_rows = []  # per round: (valid, [lab, gap, id, h1, h2, lastlab])
-        top = None
-        mx1 = None
-        key = c_key
-        for _ in range(K):
-            mx = jnp.max(key, axis=0, keepdims=True)
-            if mx1 is None:
-                mx1 = mx
-            slot_valid = mx > NEG_INF
-            at = key == mx
-            sid = jnp.min(
-                jnp.where(at, c_id, _I32_MAX), axis=0, keepdims=True
-            )
-            chosen = at & (c_id == sid)
-            ch_t = chosen[:KP]
-            ch_f = chosen[KP:]
-
-            def pick_t(arr, z):
-                return jnp.sum(
-                    jnp.where(ch_t, arr, z), axis=0, keepdims=True
-                )
-
-            def pick_f(arr, z):
-                return jnp.sum(
-                    jnp.where(ch_f, arr, z), axis=0, keepdims=True
-                )
-
-            sel_id = jnp.where(slot_valid, sid, -2)
-            sel_ll = jnp.where(sid < 0, -1, sid % np.int32(A))
-            sel_lab = pick_t(tip_lab, 0.0) + pick_f(m_ext_v, 0.0)
-            sel_gap = pick_t(tip_gap, 0.0)
-            acc = [
-                sel_lab,
-                sel_gap,
-                sel_id,
-                pick_t(h1, 0) + pick_f(th1, 0),
-                pick_t(h2, 0) + pick_f(th2, 0),
-                sel_ll,
+        # child[i][j]: tip j extends tip i by label ll[j]
+        child = [
+            [
+                (h1[i] == hp1[j]) & (h2[i] == hp2[j]) & valid[j] & ~root[j]
+                for j in range(K)
             ]
-            if top is None:
-                top = sel_lab + sel_gap  # pre-normalization top score
-            key = jnp.where(chosen, NEG_INF, key)
-            sel_rows.append((slot_valid, acc))
+            for i in range(K)
+        ]
+        # labels of tip i that land on a current tip, as a bitmask
+        mbits = [
+            _tree(jnp.bitwise_or, [
+                jnp.where(child[i][j], jnp.left_shift(1, ll[j]), 0)
+                for j in range(K)
+            ])
+            for i in range(K)
+        ]
+        # arrivals: tip j receives from its unique parent tip i
+        recv, recv_any = [], []
+        for j in range(K):
+            q_ok = ~(q[j] < thr)
+            acc, got = f0, None
+            for i in range(K):
+                sel = child[i][j] & valid[i] & q_ok
+                if collapse:
+                    base = jnp.where(ll[i] == ll[j], gap[i], lg[i])
+                else:
+                    base = lg[i]
+                acc = acc + jnp.where(sel, base * q[j], 0.0)
+                got = sel if got is None else got | sel
+            recv.append(acc)
+            recv_any.append(got)
 
-        # ---- error flags, free from the selection rounds ----
-        # empty beam <=> round 1 found nothing; a NaN total <=> round 1's
-        # max is +inf (key_of maps valid NaN candidates there); the
-        # reference's ">= 2 candidates compared" condition <=> round 2
-        # still had a candidate after round 1 took exactly one
-        # (src/search.rs:261-272 raises from the pairwise sort compare).
-        # Deviation (measure-zero): a GENUINE +inf candidate (only
-        # reachable from +/-inf posterior inputs — probabilities cannot
-        # overflow) also maps the max to +inf, so such reads raise
-        # INCOMPARABLE_VALUES here one step before the scan engine /
-        # reference, which first turn inf into NaN via the renormalizing
-        # divide and raise at the next compare.  NaN inputs (the
-        # reference's tested semantics) raise on the identical step.
-        empty_flag = ~sel_rows[0][0]
-        if K == 1:
-            two_plus = cnt >= 2
-        else:
-            two_plus = sel_rows[1][0]
-        nan_flag = (mx1 == POS_INF) & two_plus
-
-        # ---- write back the next beam, gated on `active` ----
-        step_err = jnp.where(
-            nan_flag,
-            errors.INCOMPARABLE_VALUES,
-            jnp.where(empty_flag, errors.RAN_OUT_OF_BEAM, errors.OK),
-        ).astype(jnp.int32)
-        er_ref[:] = jnp.where(
-            err > 0, err, jnp.where(active, step_err, 0)
-        ).astype(jnp.int32)
-
-        for r in range(K):
-            slot_valid, acc = sel_rows[r]
-            g = lambda new, old: jnp.where(active, new, old)
-            rs = slice(r, r + 1)
-            # true division — reciprocal-multiply rounds differently and
-            # would break bit-parity with the scan engine / the reference
-            lab_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[0] / top, 0.0), lab_ref[rs, :]
-            )
-            gap_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[1] / top, 0.0), gap_ref[rs, :]
-            )
-            id_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[2], -2), id_ref[rs, :]
-            )
-            h1_ref[rs, :] = g(acc[3], h1_ref[rs, :])
-            h2_ref[rs, :] = g(acc[4], h2_ref[rs, :])
-            ll_ref[rs, :] = g(acc[5], ll_ref[rs, :])
-            va_ref[rs, :] = g(
-                jnp.where(slot_valid, 1, 0).astype(jnp.int32), va_ref[rs, :]
-            )
-        return 0
-
-    jax.lax.fori_loop(0, TB, step, 0, unroll=TB if TB <= 8 else 1)
-    fin_ref[:] = id_ref[0:1, :]
-    err_out_ref[:] = er_ref[:]
-
-
-def _beam_kernel2(
-    thr_ref,  # SMEM (1, 1) f32
-    probs_ref,  # VMEM (TB, A1, Bt) f32
-    len_ref,  # VMEM (1, Bt) i32
-    ids_out_ref,  # VMEM (TB, KP, Bt) i32
-    fin_ref,  # VMEM (1, Bt) i32
-    err_out_ref,  # VMEM (1, Bt) i32
-    # scratch
-    lab_ref,  # (KP, Bt) f32
-    gap_ref,  # (KP, Bt) f32
-    h1_ref,  # (KP, Bt) i32  PARENT hash 1 (root: unused, ll < 0)
-    h2_ref,  # (KP, Bt) i32  PARENT hash 2
-    ll_ref,  # (KP, Bt) i32  last label (-1 root)
-    id_ref,  # (KP, Bt) i32  (-1 root, -2 empty)
-    va_ref,  # (KP, Bt) i32  validity 0/1
-    er_ref,  # (1, Bt) i32
-    *,
-    K: int,
-    KP: int,
-    A: int,
-    TB: int,
-    collapse: bool,
-):
-    """Parent-hash variant of _beam_kernel (same outputs, bit-identical).
-
-    Two restructurings against v1, both exploiting that a tip's own hash
-    is a pure function of (parent hash, last label):
-
-    1. **Parent-hash matching.**  v1 stores each tip's own hash and per
-       step mixes full [K*A, Bt] child-hash planes (th1/th2) to compare
-       against tips.  th(k, a) == h[jj] is (modulo the already-accepted
-       hash-collision tolerance) equivalent to ``h[k] == hp[jj] and
-       a == ll[jj]`` where hp is jj's *parent* hash.  Storing (hp, ll)
-       instead of h and recomputing own hashes once per step on the
-       [KP, Bt] tip plane removes both candidate-plane mixes.
-
-    2. **Deferred hash write-back.**  v1's selection rounds pick h1/h2
-       through 2 fields x (tips + fresh) masked reductions per round.
-       The winner's hashes are determined by its *source row* alone:
-       a fresh candidate (k, a) gets hp = h[k]; a tip winner jj keeps
-       hp[jj].  Each round only records (is_fresh, source row) — fresh k
-       is id arithmetic, tip jj is one min-reduction — and ONE
-       broadcast-select per hash rebuilds the new hp planes after the
-       rounds.
-    """
-    j = pl.program_id(1)
-    Bt = len_ref.shape[1]
-    KA = np.int32(K * A)
-
-    @pl.when(j == 0)
-    def _init():
-        row0 = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0) == 0
-        lab_ref[:] = jnp.zeros((KP, Bt), jnp.float32)
-        gap_ref[:] = jnp.where(row0, 1.0, 0.0).astype(jnp.float32)
-        h1_ref[:] = jnp.zeros((KP, Bt), jnp.int32)
-        h2_ref[:] = jnp.zeros((KP, Bt), jnp.int32)
-        ll_ref[:] = jnp.full((KP, Bt), -1, jnp.int32)
-        id_ref[:] = jnp.where(row0, -1, -2).astype(jnp.int32)
-        va_ref[:] = jnp.where(row0, 1, 0).astype(jnp.int32)
-        er_ref[:] = jnp.zeros((1, Bt), jnp.int32)
-
-    thr = thr_ref[0, 0]
-    lens = len_ref[:]  # (1, Bt)
-    slot = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0)
-    in_beam = slot < K
-    KAP = max(-(-KA // 8) * 8, 8)
-    row_i = jax.lax.broadcasted_iota(jnp.int32, (KAP, Bt), 0)
-    k_of_r = row_i // np.int32(A)
-    a_of_r = row_i % np.int32(A)
-    cand_in = row_i < KA
-
-    def expand_k(x_kp, fill=0):
-        out = jnp.full((KAP, Bt), fill, x_kp.dtype)
+        # tips: blank keeps the node via gap, stay (collapse) via label
+        tip_lab, tip_gap, tip_tot, tip_ok = [], [], [], []
         for k in range(K):
-            out = jnp.where(k_of_r == k, x_kp[k : k + 1, :], out)
-        return out
+            blank_push = valid[k] & (p0 > thr)
+            tip_gap.append(jnp.where(blank_push, lg[k] * p0, 0.0))
+            if collapse:
+                stay_push = valid[k] & ~root[k] & ~(q[k] < thr)
+                stay_lab = jnp.where(stay_push, lab[k] * q[k], 0.0)
+                ok = blank_push | stay_push | recv_any[k]
+            else:
+                stay_lab = f0
+                ok = blank_push | recv_any[k]
+            tip_lab.append(stay_lab + recv[k])
+            tip_tot.append(tip_lab[k] + tip_gap[k])
+            tip_ok.append(ok)
 
-    def step(jt, _):
-        t = j * TB + jt  # scalar i32
-        err = er_ref[:]
-        active = (t < lens) & (err == 0)  # (1, Bt)
-
-        lab = lab_ref[:]
-        gap = gap_ref[:]
-        hp1 = h1_ref[:]
-        hp2 = h2_ref[:]
-        lastlab = ll_ref[:]
-        idv = id_ref[:]
-        valid = (va_ref[:] != 0) & in_beam
-
-        ids_out_ref[jt] = idv
-
-        # own hashes from (parent hash, last label); root keeps the seed
-        root_row = lastlab < 0
-        h1 = jnp.where(
-            root_row, _SEED1,
-            _mix_plane(hp1, _mix_c_plane(lastlab, 0xC2B2AE35, 0x165667B1),
-                       0xC2B2AE35),
-        )
-        h2 = jnp.where(
-            root_row, _SEED2,
-            _mix_plane(hp2, _mix_c_plane(lastlab, 0x27D4EB2F, 0x9E3779B1),
-                       0x27D4EB2F),
-        )
-
-        row = probs_ref[jt]  # (A1, Bt)
-        p0 = row[0:1, :]
-        lg = lab + gap
-
-        # ---- candidate-plane expansion ----
-        plab_r = jnp.zeros((KAP, Bt), jnp.float32)
-        for a in range(A):
-            plab_r = jnp.where(a_of_r == a, row[1 + a : 2 + a, :], plab_r)
-        h1e, h2e = expand_k(h1), expand_k(h2)
-        # one packed (validity | lastlab+9) expansion instead of two
-        vl = va_ref[:] * np.int32(256) + (lastlab + np.int32(9))
-        vl_e = expand_k(vl)
-        valid_r = (vl_e >= 256) & cand_in
-        pushed = valid_r & ~(plab_r < thr)
-        if collapse:
-            is_rep_r = (vl_e & np.int32(255)) == a_of_r + np.int32(9)
-        else:
-            is_rep_r = jnp.zeros((KAP, Bt), bool)
-        gap_e = expand_k(gap)
-        m_ext = jnp.where(is_rep_r, gap_e, expand_k(lg)) * plab_r
-
-        # ---- matching via parent identity: (k, a) -> jj iff
-        # h[k] == hp[jj] and a == ll[jj].  The label term folds into the
-        # first hash compare by xoring label*C into both sides, and
-        # validity folds in by poisoning invalid tips' side: a false
-        # match then needs the folded h1 compare AND the full h2 compare
-        # to alias simultaneously — the same ~2^-64 budget as the
-        # original double-hash test, at half the compare ops.
-        LC = _u(0x61C88647)
-        e1 = h1e ^ (a_of_r * LC)
-        phl1 = hp1 ^ (lastlab * LC)
-        phl1 = jnp.where(valid, phl1, _u(0x5D5D5D5D))
-        match = []
-        matched = jnp.zeros((KAP, Bt), bool)
-        for jj in range(K):
-            m = (e1 == phl1[jj : jj + 1, :]) & (
-                h2e == hp2[jj : jj + 1, :]
-            )
-            match.append(m)
-            matched = matched | m
-
-        push_ext = pushed & (~is_rep_r | matched | (gap_e > 0.0))
-
-        # recv sums stay per-tip; the "any arrival" bits ride ONE
-        # or-reduce of a target bitmask instead of K any-reductions
-        recv = jnp.zeros((KP, Bt), jnp.float32)
-        tgt_bits = jnp.zeros((KAP, Bt), jnp.int32)
-        for jj in range(K):
-            sel = match[jj] & push_ext
-            acc = jnp.sum(jnp.where(sel, m_ext, 0.0), axis=0, keepdims=True)
-            rmask = slot == jj
-            recv = jnp.where(rmask, acc, recv)
-            tgt_bits = tgt_bits | jnp.where(sel, np.int32(1 << jj), 0)
-        got_bits = jnp.max(tgt_bits, axis=0, keepdims=True)  # or of onehots
-        recv_any = (
-            jax.lax.shift_right_logical(
-                jnp.broadcast_to(got_bits, (KP, Bt)), slot
-            )
-            & 1
-        ) != 0
-
-        # ---- stay / blank ----
-        if collapse:
-            p_stay = jnp.zeros((KP, Bt), jnp.float32)
-            for a in range(A):
-                p_stay = p_stay + jnp.where(
-                    lastlab == a, row[1 + a : 2 + a, :], 0.0
-                )
-            stay_push = valid & (lastlab >= 0) & ~(p_stay < thr)
-            stay_lab = jnp.where(stay_push, lab * p_stay, 0.0)
-        else:
-            stay_push = jnp.zeros((KP, Bt), bool)
-            stay_lab = jnp.zeros((KP, Bt), jnp.float32)
-
-        blank_push = valid & (p0 > thr)
-        blank_gap = jnp.where(blank_push, lg * p0, 0.0)
-
-        tip_lab = stay_lab + recv
-        tip_gap = blank_gap
-        tip_valid = blank_push | stay_push | recv_any
-
-        def key_of(v, tot):
-            return jnp.where(
-                v, jnp.where(jnp.isnan(tot), POS_INF, tot + 0.0), NEG_INF
-            )
-
-        fresh_valid = push_ext & ~matched
-        fresh_id = t * KA + k_of_r * np.int32(A) + a_of_r
-        tip_tot = tip_lab + tip_gap
-        m_ext_v = jnp.where(fresh_valid, m_ext, 0.0)
-        c_key = jnp.concatenate(
-            [key_of(tip_valid, tip_tot), key_of(fresh_valid, m_ext_v)]
-        )  # (KP + KAP, Bt)
-        c_id = jnp.concatenate([idv, fresh_id])
-
-        if K == 1:
-            c_valid = c_key > NEG_INF
-            cnt = jnp.sum(jnp.where(c_valid, 1, 0), axis=0, keepdims=True)
-
-        # ---- top-K selection rounds ----
-        tKA = t * KA  # scalar: fresh ids are >= tKA, tip ids are < tKA
-        sel_rows = []  # per round: (valid, [lab, gap, id, ll, isf, src])
-        top = None
-        mx1 = None
-        key = c_key
-        for _ in range(K):
-            mx = jnp.max(key, axis=0, keepdims=True)
-            if mx1 is None:
-                mx1 = mx
-            slot_valid = mx > NEG_INF
-            at = key == mx
-            sid = jnp.min(
-                jnp.where(at, c_id, _I32_MAX), axis=0, keepdims=True
-            )
-            chosen = at & (c_id == sid)
-            ch_t = chosen[:KP]
-
-            def pick_t(arr, z):
-                return jnp.sum(
-                    jnp.where(ch_t, arr, z), axis=0, keepdims=True
-                )
-
-            sel_id = jnp.where(slot_valid, sid, -2)
-            sel_ll = jnp.where(sid < 0, -1, sid % np.int32(A))
-            # a fresh winner's key IS its m_ext bit-exactly (gap = 0,
-            # key_of adds 0.0), so only tip winners need field picks —
-            # and the tip region is 8 rows, not KP + K*A
-            isf = sid >= tKA
-            sel_lab = jnp.where(isf, mx, pick_t(tip_lab, 0.0))
-            sel_gap = jnp.where(isf, 0.0, pick_t(tip_gap, 0.0))
-            # source row: fresh -> parent tip k (id arithmetic); tip ->
-            # its own slot (min over the chosen tip-region row)
-            k_fresh = jax.lax.div(sid - tKA, np.int32(A))
-            jj_tip = jnp.min(
-                jnp.where(ch_t, slot, np.int32(KP)), axis=0, keepdims=True
-            )
-            src = jnp.where(isf, k_fresh, jj_tip)
-            acc = [sel_lab, sel_gap, sel_id, sel_ll, isf, src]
-            if top is None:
-                top = sel_lab + sel_gap
-            key = jnp.where(chosen, NEG_INF, key)
-            sel_rows.append((slot_valid, acc))
-
-        empty_flag = ~sel_rows[0][0]
-        if K == 1:
-            two_plus = cnt >= 2
-        else:
-            two_plus = sel_rows[1][0]
-        nan_flag = (mx1 == POS_INF) & two_plus
-
-        step_err = jnp.where(
-            nan_flag,
-            errors.INCOMPARABLE_VALUES,
-            jnp.where(empty_flag, errors.RAN_OUT_OF_BEAM, errors.OK),
-        ).astype(jnp.int32)
-        er_ref[:] = jnp.where(
-            err > 0, err, jnp.where(active, step_err, 0)
-        ).astype(jnp.int32)
-
-        # ---- assemble (source row | fresh flag) plane for the new beam ----
-        srcp = jnp.zeros((KP, Bt), jnp.int32)
-        for r in range(K):
-            _, acc = sel_rows[r]
-            enc = acc[5] + jnp.where(acc[4], np.int32(KP), 0)
-            srcp = jnp.where(slot == r, enc, srcp)
-        # one broadcast-select per hash: row r -> old hp[r] (tip winner),
-        # row KP + r -> own-hash h[r] (fresh winner's parent)
-        nhp1 = jnp.zeros((KP, Bt), jnp.int32)
-        nhp2 = jnp.zeros((KP, Bt), jnp.int32)
-        for r in range(K):
-            tm = srcp == r
-            fm = srcp == KP + r
-            nhp1 = jnp.where(tm, hp1[r : r + 1, :], nhp1)
-            nhp1 = jnp.where(fm, h1[r : r + 1, :], nhp1)
-            nhp2 = jnp.where(tm, hp2[r : r + 1, :], nhp2)
-            nhp2 = jnp.where(fm, h2[r : r + 1, :], nhp2)
-
-        actp = active & in_beam
-        h1_ref[:] = jnp.where(actp, nhp1, hp1)
-        h2_ref[:] = jnp.where(actp, nhp2, hp2)
-
-        for r in range(K):
-            slot_valid, acc = sel_rows[r]
-            g = lambda new, old: jnp.where(active, new, old)
-            rs = slice(r, r + 1)
-            # true division — reciprocal-multiply rounds differently and
-            # would break bit-parity with the scan engine / the reference
-            lab_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[0] / top, 0.0), lab_ref[rs, :]
-            )
-            gap_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[1] / top, 0.0), gap_ref[rs, :]
-            )
-            id_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[2], -2), id_ref[rs, :]
-            )
-            ll_ref[rs, :] = g(acc[3], ll_ref[rs, :])
-            va_ref[rs, :] = g(
-                jnp.where(slot_valid, 1, 0).astype(jnp.int32), va_ref[rs, :]
-            )
-        return 0
-
-    jax.lax.fori_loop(0, TB, step, 0, unroll=TB if TB <= 8 else 1)
-    fin_ref[:] = id_ref[0:1, :]
-    err_out_ref[:] = er_ref[:]
-
-
-def _beam_kernel3(
-    thr_ref,  # SMEM (1, 1) f32
-    probs_ref,  # VMEM (TB, A1, Bt) f32
-    len_ref,  # VMEM (1, Bt) i32
-    ids_out_ref,  # VMEM (TB, KP, Bt) i32
-    fin_ref,  # VMEM (1, Bt) i32
-    err_out_ref,  # VMEM (1, Bt) i32
-    # scratch
-    lab_ref,  # (KP, Bt) f32
-    gap_ref,  # (KP, Bt) f32
-    h1_ref,  # (KP, Bt) i32  PARENT hash 1
-    h2_ref,  # (KP, Bt) i32  PARENT hash 2
-    ll_ref,  # (KP, Bt) i32  last label (-1 root)
-    id_ref,  # (KP, Bt) i32  (-1 root, -2 empty)
-    va_ref,  # (KP, Bt) i32  validity 0/1
-    er_ref,  # (1, Bt) i32
-    *,
-    K: int,
-    KP: int,
-    A: int,
-    TB: int,
-    collapse: bool,
-):
-    """v2 with an a-major tiled candidate plane (pltpu.repeat expansion).
-
-    The per-(k, a) candidate plane is laid out as A tiles of the full
-    KP-row tip plane (row r: k = r % KP, a = r // KP), so every per-tip
-    -> per-candidate expansion is ONE pltpu.repeat instead of K
-    broadcast+select sweeps.  Tip rows k >= K are invalid by va == 0, so
-    the tile padding needs no extra mask; row masks that remain (label
-    plane, repeat test) compare against a = r // KP, which is constant
-    over each 8-sublane register group.  Candidate ids still encode the
-    reference (t*K*A + k*A + a) order, so selection, tie-breaks, and the
-    traceback are bit-identical to v1/v2.
-    """
-    j = pl.program_id(1)
-    Bt = len_ref.shape[1]
-    KA = np.int32(K * A)
-
-    @pl.when(j == 0)
-    def _init():
-        row0 = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0) == 0
-        lab_ref[:] = jnp.zeros((KP, Bt), jnp.float32)
-        gap_ref[:] = jnp.where(row0, 1.0, 0.0).astype(jnp.float32)
-        h1_ref[:] = jnp.zeros((KP, Bt), jnp.int32)
-        h2_ref[:] = jnp.zeros((KP, Bt), jnp.int32)
-        ll_ref[:] = jnp.full((KP, Bt), -1, jnp.int32)
-        id_ref[:] = jnp.where(row0, -1, -2).astype(jnp.int32)
-        va_ref[:] = jnp.where(row0, 1, 0).astype(jnp.int32)
-        er_ref[:] = jnp.zeros((1, Bt), jnp.int32)
-
-    thr = thr_ref[0, 0]
-    lens = len_ref[:]  # (1, Bt)
-    slot = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0)
-    in_beam = slot < K
-    KAP = KP * A  # a-major: A tiles of the KP-row tip plane
-    row_i = jax.lax.broadcasted_iota(jnp.int32, (KAP, Bt), 0)
-    k_of_r = row_i % np.int32(KP)
-    a_of_r = row_i // np.int32(KP)
-    # reference candidate id offset k*A + a from the tiled row index
-    fid_c = k_of_r * np.int32(A) + a_of_r
-
-    def expand_k(x_kp):
-        return pltpu.repeat(x_kp, A, axis=0)
-
-    def step(jt, _):
-        t = j * TB + jt  # scalar i32
-        err = er_ref[:]
-        active = (t < lens) & (err == 0)  # (1, Bt)
-
-        lab = lab_ref[:]
-        gap = gap_ref[:]
-        hp1 = h1_ref[:]
-        hp2 = h2_ref[:]
-        lastlab = ll_ref[:]
-        idv = id_ref[:]
-        valid = (va_ref[:] != 0) & in_beam
-
-        ids_out_ref[jt] = idv
-
-        root_row = lastlab < 0
-        h1 = jnp.where(
-            root_row, _SEED1,
-            _mix_plane(hp1, _mix_c_plane(lastlab, 0xC2B2AE35, 0x165667B1),
-                       0xC2B2AE35),
-        )
-        h2 = jnp.where(
-            root_row, _SEED2,
-            _mix_plane(hp2, _mix_c_plane(lastlab, 0x27D4EB2F, 0x9E3779B1),
-                       0x27D4EB2F),
-        )
-
-        row = probs_ref[jt]  # (A1, Bt)
-        p0 = row[0:1, :]
-        lg = lab + gap
-
-        # ---- candidate-plane expansion: one tile op per field ----
-        plab_r = jnp.zeros((KAP, Bt), jnp.float32)
-        for a in range(A):
-            plab_r = jnp.where(a_of_r == a, row[1 + a : 2 + a, :], plab_r)
-        h1e, h2e = expand_k(h1), expand_k(h2)
-        vl = va_ref[:] * np.int32(256) + (lastlab + np.int32(9))
-        vl_e = expand_k(vl)
-        valid_r = vl_e >= 256  # tip rows k >= K have va == 0
-        pushed = valid_r & ~(plab_r < thr)
-        if collapse:
-            is_rep_r = (vl_e & np.int32(255)) == a_of_r + np.int32(9)
-        else:
-            is_rep_r = jnp.zeros((KAP, Bt), bool)
-        gap_e = expand_k(gap)
-        m_ext = jnp.where(is_rep_r, gap_e, expand_k(lg)) * plab_r
-
-        # ---- matching via parent identity ----
-        match = []
-        matched = jnp.zeros((KAP, Bt), bool)
-        for jj in range(K):
-            m = (
-                (h1e == hp1[jj : jj + 1, :])
-                & (h2e == hp2[jj : jj + 1, :])
-                & (a_of_r == lastlab[jj : jj + 1, :])
-                & valid[jj : jj + 1, :]
-            )
-            match.append(m)
-            matched = matched | m
-
-        push_ext = pushed & (~is_rep_r | matched | (gap_e > 0.0))
-
-        recv = jnp.zeros((KP, Bt), jnp.float32)
-        recv_any = jnp.zeros((KP, Bt), bool)
-        for jj in range(K):
-            sel = match[jj] & push_ext
-            acc = jnp.sum(jnp.where(sel, m_ext, 0.0), axis=0, keepdims=True)
-            got = jnp.any(sel, axis=0, keepdims=True)
-            rmask = slot == jj
-            recv = jnp.where(rmask, acc, recv)
-            recv_any = recv_any | (rmask & got)
-
-        # ---- stay / blank ----
-        if collapse:
-            p_stay = jnp.zeros((KP, Bt), jnp.float32)
-            for a in range(A):
-                p_stay = p_stay + jnp.where(
-                    lastlab == a, row[1 + a : 2 + a, :], 0.0
-                )
-            stay_push = valid & (lastlab >= 0) & ~(p_stay < thr)
-            stay_lab = jnp.where(stay_push, lab * p_stay, 0.0)
-        else:
-            stay_push = jnp.zeros((KP, Bt), bool)
-            stay_lab = jnp.zeros((KP, Bt), jnp.float32)
-
-        blank_push = valid & (p0 > thr)
-        blank_gap = jnp.where(blank_push, lg * p0, 0.0)
-
-        tip_lab = stay_lab + recv
-        tip_gap = blank_gap
-        tip_valid = blank_push | stay_push | recv_any
-
-        def key_of(v, tot):
-            return jnp.where(
-                v, jnp.where(jnp.isnan(tot), POS_INF, tot + 0.0), NEG_INF
-            )
-
-        fresh_valid = push_ext & ~matched
-        fresh_id = t * KA + fid_c
-        tip_tot = tip_lab + tip_gap
-        m_ext_v = jnp.where(fresh_valid, m_ext, 0.0)
-        c_key = jnp.concatenate(
-            [key_of(tip_valid, tip_tot), key_of(fresh_valid, m_ext_v)]
-        )  # (KP + KAP, Bt)
-        c_id = jnp.concatenate([idv, fresh_id])
-
-        if K == 1:
-            c_valid = c_key > NEG_INF
-            cnt = jnp.sum(jnp.where(c_valid, 1, 0), axis=0, keepdims=True)
-
-        # ---- top-K selection rounds ----
+        # fresh extensions: (k, a) that target no current tip
+        fr_ok, fr_tot, fr_id = [], [], []
         tKA = t * KA
-        sel_rows = []
+        for k in range(K):
+            for a in range(A):
+                ok = valid[k] & ~(pl_[a] < thr)
+                ok = ok & ((jax.lax.shift_right_logical(mbits[k], a) & 1) == 0)
+                if collapse:
+                    rep = ll[k] == a
+                    ok = ok & (~rep | (gap[k] > 0.0))
+                    m_ext = jnp.where(rep, gap[k], lg[k]) * pl_[a]
+                else:
+                    m_ext = lg[k] * pl_[a]
+                fr_ok.append(ok)
+                # total = label mass + zero gap, as beam_fast sums it
+                fr_tot.append(jnp.where(ok, m_ext, 0.0) + 0.0)
+                fr_id.append(tKA + np.int32(k * A + a))
+
+        def key_of(ok, tot):
+            return jnp.where(
+                ok, jnp.where(jnp.isnan(tot), POS_INF, tot + 0.0), NEG_INF
+            )
+
+        c_ok = tip_ok + fr_ok
+        c_tot = tip_tot + fr_tot
+        keys = [key_of(o, x) for o, x in zip(c_ok, c_tot)]
+        cids = list(idv) + fr_id
+        # the reference raises only when a NaN is actually compared, i.e.
+        # with >= 2 merged candidates (search.rs:261-272)
+        cnt = _tree(jnp.add, [o.astype(jnp.int32) for o in c_ok])
+        any_nan = _tree(jnp.bitwise_or,
+                        [o & jnp.isnan(x) for o, x in zip(c_ok, c_tot)])
+        nan_flag = (cnt >= 2) & any_nan
+        empty_flag = cnt == 0
+
+        # ---- top-K: K rounds of (max key, tie -> min id) ----
+        new = []
         top = None
-        mx1 = None
-        key = c_key
-        for _ in range(K):
-            mx = jnp.max(key, axis=0, keepdims=True)
-            if mx1 is None:
-                mx1 = mx
-            slot_valid = mx > NEG_INF
-            at = key == mx
-            sid = jnp.min(
-                jnp.where(at, c_id, _I32_MAX), axis=0, keepdims=True
-            )
-            chosen = at & (c_id == sid)
-            ch_t = chosen[:KP]
-            ch_f = chosen[KP:]
-
-            def pick_t(arr, z):
-                return jnp.sum(
-                    jnp.where(ch_t, arr, z), axis=0, keepdims=True
-                )
-
-            def pick_f(arr, z):
-                return jnp.sum(
-                    jnp.where(ch_f, arr, z), axis=0, keepdims=True
-                )
-
-            sel_id = jnp.where(slot_valid, sid, -2)
-            sel_ll = jnp.where(sid < 0, -1, sid % np.int32(A))
-            sel_lab = pick_t(tip_lab, 0.0) + pick_f(m_ext_v, 0.0)
-            sel_gap = pick_t(tip_gap, 0.0)
+        for r in range(K):
+            mx = _tree(jnp.maximum, keys)
+            sid = _tree(jnp.minimum,
+                        [jnp.where(kk == mx, c, imax)
+                         for kk, c in zip(keys, cids)])
+            ok = mx > NEG_INF
             isf = sid >= tKA
-            k_fresh = jax.lax.div(sid - tKA, np.int32(A))
-            jj_tip = jnp.min(
-                jnp.where(ch_t, slot, np.int32(KP)), axis=0, keepdims=True
-            )
-            src = jnp.where(isf, k_fresh, jj_tip)
-            acc = [sel_lab, sel_gap, sel_id, sel_ll, isf, src]
+            # a fresh winner (k, a): lab = its key (gap 0), parent tip k;
+            # a tip winner j: its own merged fields
+            off = jnp.where(isf, sid - tKA, 0)
+            kf = jax.lax.div(off, np.int32(A))
+            at_tip = [~isf & (idv[j] == sid) for j in range(K)]
+            at_k = [kf == k for k in range(K)]
+            s_lab = jnp.where(isf, mx, _pick(at_tip, tip_lab, f0))
+            s_gap = jnp.where(isf, 0.0, _pick(at_tip, tip_gap, f0))
+            s_hp1 = jnp.where(isf, _pick(at_k, h1, i0), _pick(at_tip, hp1, i0))
+            s_hp2 = jnp.where(isf, _pick(at_k, h2, i0), _pick(at_tip, hp2, i0))
+            s_ll = jnp.where(isf, jax.lax.rem(off, np.int32(A)),
+                             _pick(at_tip, ll, i0 - 1))
             if top is None:
-                top = sel_lab + sel_gap
-            key = jnp.where(chosen, NEG_INF, key)
-            sel_rows.append((slot_valid, acc))
-
-        empty_flag = ~sel_rows[0][0]
-        if K == 1:
-            two_plus = cnt >= 2
-        else:
-            two_plus = sel_rows[1][0]
-        nan_flag = (mx1 == POS_INF) & two_plus
+                top = s_lab + s_gap
+            new.append((ok, s_lab, s_gap, s_hp1, s_hp2, s_ll, sid))
+            if r + 1 < K:
+                keys = [jnp.where(c == sid, NEG_INF, kk)
+                        for kk, c in zip(keys, cids)]
 
         step_err = jnp.where(
             nan_flag,
             errors.INCOMPARABLE_VALUES,
             jnp.where(empty_flag, errors.RAN_OUT_OF_BEAM, errors.OK),
         ).astype(jnp.int32)
-        er_ref[:] = jnp.where(
-            err > 0, err, jnp.where(active, step_err, 0)
-        ).astype(jnp.int32)
+        err = jnp.where(err > 0, err, jnp.where(active, step_err, 0))
 
-        srcp = jnp.zeros((KP, Bt), jnp.int32)
-        for r in range(K):
-            _, acc = sel_rows[r]
-            enc = acc[5] + jnp.where(acc[4], np.int32(KP), 0)
-            srcp = jnp.where(slot == r, enc, srcp)
-        nhp1 = jnp.zeros((KP, Bt), jnp.int32)
-        nhp2 = jnp.zeros((KP, Bt), jnp.int32)
-        for r in range(K):
-            tm = srcp == r
-            fm = srcp == KP + r
-            nhp1 = jnp.where(tm, hp1[r : r + 1, :], nhp1)
-            nhp1 = jnp.where(fm, h1[r : r + 1, :], nhp1)
-            nhp2 = jnp.where(tm, hp2[r : r + 1, :], nhp2)
-            nhp2 = jnp.where(fm, h2[r : r + 1, :], nhp2)
+        def g(n, o):
+            return jnp.where(active, n, o)
 
-        actp = active & in_beam
-        h1_ref[:] = jnp.where(actp, nhp1, hp1)
-        h2_ref[:] = jnp.where(actp, nhp2, hp2)
+        out = ([], [], [], [], [], [], [])
+        for r, (ok, s_lab, s_gap, s_hp1, s_hp2, s_ll, sid) in enumerate(new):
+            out[0].append(g(jnp.where(ok, _div_rn(s_lab, top, interpret), 0.0),
+                            lab[r]))
+            out[1].append(g(jnp.where(ok, _div_rn(s_gap, top, interpret), 0.0),
+                            gap[r]))
+            out[2].append(g(s_hp1, hp1[r]))
+            out[3].append(g(s_hp2, hp2[r]))
+            out[4].append(g(s_ll, ll[r]))
+            out[5].append(g(jnp.where(ok, sid, -2), idv[r]))
+            out[6].append(g(ok.astype(jnp.int32), va[r]))
+        return (*out, err.astype(jnp.int32))
 
-        for r in range(K):
-            slot_valid, acc = sel_rows[r]
-            g = lambda new, old: jnp.where(active, new, old)
-            rs = slice(r, r + 1)
-            lab_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[0] / top, 0.0), lab_ref[rs, :]
-            )
-            gap_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[1] / top, 0.0), gap_ref[rs, :]
-            )
-            id_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[2], -2), id_ref[rs, :]
-            )
-            ll_ref[rs, :] = g(acc[3], ll_ref[rs, :])
-            va_ref[rs, :] = g(
-                jnp.where(slot_valid, 1, 0).astype(jnp.int32), va_ref[rs, :]
-            )
-        return 0
-
-    jax.lax.fori_loop(0, TB, step, 0, unroll=TB if TB <= 8 else 1)
-    fin_ref[:] = id_ref[0:1, :]
-    err_out_ref[:] = er_ref[:]
-
-
-# Experiment hook: beam_search_pallas_batch(version=N) dispatches here so
-# tools/ab_bench.py can bit-parity-check and time kernel variants against
-# the default.  (Round 5 tried an a-major candidate-plane variant — aligned
-# sublane concats instead of K-way selects for the expansion — and measured
-# it ~5% SLOWER than the k-major kernel at B=4096..32768; see PERF.md.
-# v3 revisits a-major with pltpu.repeat tiles instead of concats.)
-_KERNEL_VARIANTS = {1: _beam_kernel, 2: _beam_kernel2, 3: _beam_kernel3}
+    res = jax.lax.fori_loop(0, T, step, carry0)
+    fin_ref[...] = res[5][0]
+    err_ref[...] = res[7]
 
 
 def _traceback_kernel(
-    fin_ref,  # VMEM (1, Bt) i32
-    ids_ref,  # VMEM (TB, KP, Bt) i32
-    key_ref,  # out VMEM (TB, Bt) i32 — packed keys
-    cur_ref,  # scratch (1, Bt) i32
+    fin_ref,  # (Bt,) i32
+    ids_ref,  # (T, K, Bt) i32 block of the [T, K, B] id log
+    lab_in_ref,  # (Bt, T) i32, aliased to lab_ref (pre-filled with -1)
+    tim_in_ref,  # (Bt, T) i32, aliased to tim_ref
+    lab_ref,  # out (Bt, T) i32 labels_rev
+    tim_ref,  # out (Bt, T) i32 times_rev
+    cnt_ref,  # out (Bt,) i32
     *,
     K: int,
     A: int,
     T: int,
-    TB: int,
-    JT: int,
-    lab_bits: int,
-    gap: int,
 ):
-    """Backward parent walk over the id log, fused (beam_fast
-    _traceback_scan_batch semantics — see its docstring for why one
-    backward sweep visits every chain node).
-
-    The XLA scan form pays ~10 us of per-step dispatch for ~15 vector ops
-    on [B]-wide rows; here the whole walk is one kernel bound by streaming
-    the [T, KP, B] id log (~1 GB at the headline shape).  The packed
-    compaction key (no-emit flag | backward-step | label+1, see
-    beam_fast._sort_unpack_keys) is built in-register; the [T, B] key
-    plane then takes ONE cheap large-minor-dim XLA transpose to the
-    [B, T] layout lax.sort wants.  (Emitting transposed (Bt, TB) tiles
-    from the kernel is illegal below 128 lanes, and TB=128 would force
-    the forward kernel's T padding up with a 1 GB copy.)
-
-    Grid = (B/Bt, T/TB) with the T axis walked in REVERSE via the index
-    maps (block j reads time block JT-1-j); cur persists in scratch.
-    Padded steps t >= T can never match a live id's creation step (ids
-    are only allocated at active steps), so they emit no-op keys that the
-    caller never reads (it slices [:, :T]... they land at i = T-1-t < 0,
-    i.e. negative keys, sorted first — sliced region [:T] is unaffected
-    because every real key is non-negative and there are T of them).
-    """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        cur_ref[:] = fin_ref[:]
-
+    """Backward parent walk over the id log (beam_fast
+    ``_traceback_scan_batch`` semantics: a parent is always created at an
+    earlier step than its child, so one backward sweep over t visits
+    every node of the final chain, leaf first).  Each emit is stored at
+    the read's running count, which is its leaf-first rank."""
+    del lab_in_ref, tim_in_ref
+    Bt = fin_ref.shape[0]
     KA = np.int32(K * A)
+    lanes = jax.lax.broadcasted_iota(jnp.int32, (Bt,), 0)
 
-    def step(n, _):
-        jt = TB - 1 - n  # walk this block's steps newest-first
-        t = (JT - 1 - j) * TB + jt
-        cur = cur_ref[:]
-        ok = cur >= 0
+    def step(n, carry):
+        cur, cnt = carry
+        t = np.int32(T - 1) - n
         safe = jnp.maximum(cur, 0)
-        tt = safe // KA
-        r = safe % KA
-        k = r // np.int32(A)
-        a = r % np.int32(A)
-        hit = ok & (tt == t)
-        ids_t = ids_ref[jt]  # (KP, Bt)
-        par = jnp.full_like(cur, -2)
-        for kk in range(K):
-            par = jnp.where(k == kk, ids_t[kk : kk + 1, :], par)
-        cur_ref[:] = jnp.where(hit, par, cur)
-        lab1 = jnp.where(hit, a + 1, 0)
-        i = np.int32(T - 1) - t
-        key = (
-            jnp.where(lab1 == 0, np.int32(gap), 0)
-            | (i << np.int32(lab_bits))
-            | lab1
+        tt = jax.lax.div(safe, KA)
+        r = jax.lax.rem(safe, KA)
+        hit = (cur >= 0) & (tt == t)
+        par = plt.load(
+            ids_ref.at[t, jax.lax.div(r, np.int32(A)), lanes],
+            mask=hit, other=-2,
         )
-        key_ref[pl.ds(jt, 1), :] = key
-        return 0
+        plt.store(lab_ref.at[lanes, cnt], jax.lax.rem(r, np.int32(A)),
+                  mask=hit)
+        plt.store(tim_ref.at[lanes, cnt], jnp.full((Bt,), t), mask=hit)
+        return jnp.where(hit, par, cur), cnt + hit.astype(jnp.int32)
 
-    jax.lax.fori_loop(0, TB, step, 0, unroll=TB if TB <= 8 else 1)
-
-
-def _traceback_pallas_keys(
-    fin_p,  # [1, Bp] i32 (padded)
-    ids_p,  # [Tp, KP, Bp] i32 (padded; Tp % TB == 0, Bp % Bt == 0)
-    *,
-    T: int,
-    K: int,
-    A: int,
-    TB: int,
-    Bt: int,
-    interpret: bool = False,
-):
-    """Run the fused backward walk; returns packed keys [Bp, Tp]."""
-    from .beam_fast import _key_bits
-
-    Tp, KP, Bp = ids_p.shape
-    JT = Tp // TB
-    lab_bits, t_bits = _key_bits(T, A)
-    gap = 1 << (lab_bits + t_bits)
-    kernel = functools.partial(
-        _traceback_kernel,
-        K=K, A=A, T=T, TB=TB, JT=JT, lab_bits=lab_bits, gap=gap,
+    _, cnt = jax.lax.fori_loop(
+        0, T, step, (fin_ref[...], jnp.zeros((Bt,), jnp.int32))
     )
-    key_tb = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(Bp // Bt, JT),
-            in_specs=[
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-                pl.BlockSpec(
-                    (TB, KP, Bt), lambda i, j, JT=JT: (JT - 1 - j, 0, i)
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (TB, Bt), lambda i, j, JT=JT: (JT - 1 - j, i)
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((1, Bt), jnp.int32),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((Tp, Bp), jnp.int32),
+    cnt_ref[...] = cnt
+
+
+def _params(block_b: int):
+    # one warp per 32 reads: one read per thread
+    return plt.CompilerParams(num_warps=max(block_b // 32, 1), num_stages=1)
+
+
+def _traceback_call(fin, ids_log, *, T, K, A, Bt, interpret):
+    """fin [Bp] + ids_log [T, K, Bp] -> (labels_rev, times_rev, count)."""
+    Bp = fin.shape[0]
+    fill = jnp.full((Bp, T), -1, jnp.int32)
+    row = pl.BlockSpec((Bt, T), lambda i: (i, 0))
+    vec = pl.BlockSpec((Bt,), lambda i: (i,))
+    return pl.pallas_call(
+        functools.partial(_traceback_kernel, K=K, A=A, T=T),
+        grid=(Bp // Bt,),
+        in_specs=[vec, pl.BlockSpec((T, K, Bt), lambda i: (0, 0, i)), row, row],
+        out_specs=[row, row, vec],
+        out_shape=[
+            jax.ShapeDtypeStruct((Bp, T), jnp.int32),
+            jax.ShapeDtypeStruct((Bp, T), jnp.int32),
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),
+        ],
+        input_output_aliases={2: 0, 3: 1},
+        backend="triton",
+        compiler_params=_params(Bt),
+        name="ctc_beam_traceback",
         interpret=interpret,
-    )(fin_p, ids_p)
-    return key_tb.T
+    )(fin, ids_log, fill, fill)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("T", "K", "A", "block_t", "block_b", "interpret")
+    jax.jit, static_argnames=("T", "K", "A", "block_b", "interpret")
 )
 def traceback_pallas_batch(
     fin,  # [B] i32 final beam-head ids
-    ids_log,  # [>=T, KP, B] i32 (tips-major kernel layout)
+    ids_log,  # [T, K, B] i32
     *,
     T: int,
     K: int,
     A: int,
-    block_t: int = 32,
-    block_b: int = 512,
+    block_b: int = 32,
     interpret: bool = False,
 ):
-    """Fused traceback: returns (labels_rev [B, T], times_rev, count).
-
-    Bit-identical to beam_fast._traceback_scan_batch (property-tested);
-    requires the packed-key range to fit (T and A bounded so
-    lab_bits + t_bits <= 30 — callers fall back to the scan form beyond).
-    """
-    from .beam_fast import _key_bits, _sort_unpack_keys
-
+    """Fused traceback: (labels_rev [B, T], times_rev [B, T], count [B]),
+    bit-identical to beam_fast._traceback_scan_batch over the same log."""
     B = fin.shape[0]
-    T0 = ids_log.shape[0]
-    lab_bits, t_bits = _key_bits(T, A)
-    TB = min(block_t, max(T, 1))
-    Bt = min(block_b, max(B, 1))
-    Tp = -(-T // TB) * TB
+    Bt = min(block_b, _pow2_at_least(B))
     Bp = -(-B // Bt) * Bt
-    ids_p = ids_log
-    if T0 != Tp or ids_log.shape[2] != Bp:
-        ids_p = jnp.pad(
-            ids_log[:Tp],
-            ((0, max(0, Tp - T0)), (0, 0), (0, Bp - ids_log.shape[2])),
-        )
-    fin_p = jnp.pad(fin.astype(jnp.int32), (0, Bp - B)).reshape(1, Bp)
+    fin_p = jnp.pad(fin.astype(jnp.int32), (0, Bp - B), constant_values=-2)
+    ids_p = jnp.pad(ids_log[:T], ((0, 0), (0, 0), (0, Bp - B)))
+    lab, tim, cnt = _traceback_call(
+        fin_p, ids_p, T=T, K=K, A=A, Bt=Bt, interpret=interpret
+    )
+    return lab[:B], tim[:B], cnt[:B]
 
-    key_bt = _traceback_pallas_keys(
-        fin_p, ids_p, T=T, K=K, A=A, TB=TB, Bt=Bt, interpret=interpret
-    )
-    labels_rev, times_rev = _sort_unpack_keys(
-        key_bt[:B, :T], T, lab_bits, t_bits
-    )
-    count = jnp.sum((labels_rev >= 0).astype(jnp.int32), axis=-1)
-    return labels_rev, times_rev, count
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "beam_size", "collapse_repeats", "block_t", "block_b", "interpret",
-        "raw", "version", "traceback",
+        "beam_size", "collapse_repeats", "block_b", "interpret", "raw",
     ),
 )
 def beam_search_pallas_batch(
@@ -1144,551 +416,60 @@ def beam_search_pallas_batch(
     *,
     beam_size: int,
     collapse_repeats: bool = True,
-    block_t: int = 32,
-    block_b: int = 512,
+    block_b: int = 32,
     interpret: bool = False,
     raw: bool = False,
-    version: int = 2,
-    traceback: str = "auto",
 ):
-    """Fused-kernel batched beam search; beam_fast output contract."""
+    """Fused-kernel batched beam search; beam_fast output contract.
+
+    ``block_b`` reads per program (a power of two; one warp per 32).
+    ``raw=True`` returns the decode kernel's outputs only (``ids_log``
+    [T, K, B], ``fin``, ``err``) for stage timing and tests."""
     B, T, A1 = probs.shape
     A = A1 - 1
     K = beam_size
-    KP = max(-(-K // 8) * 8, 8)
-    TB = min(block_t, max(T, 1))
-    Bt = min(block_b, max(B, 1))
-    if T % TB:
-        # a time-block that divides T exactly skips the [B, T, A1] pad —
-        # an extra full-array copy (~9 ms at the headline shape, the
-        # XLA pad runs at HBM-copy rate).  Prefer the largest divisor of
-        # T near block_t; fall back to padding for awkward T.
-        # (multiple of 8: the traceback kernel's 2-D key blocks need an
-        # 8-aligned sublane dim)
-        for d in range(min(2 * TB, T) & ~7, 7, -8):
-            if T % d == 0:
-                TB = d
-                break
-
-    Tp = -(-T // TB) * TB
+    Bt = min(block_b, _pow2_at_least(B))
     Bp = -(-B // Bt) * Bt
-    probs_p = probs
-    if Tp != T or Bp != B:
-        probs_p = jnp.pad(probs, ((0, Bp - B), (0, Tp - T), (0, 0)))
-    lens_p = jnp.pad(
-        jnp.asarray(lengths, jnp.int32), (0, Bp - B)
-    ).reshape(1, Bp)
-    # [Tp, A1, Bp] input layout.  Round 2 found the 2-D flat transpose
-    # ([Bp, Tp*A1] -> [Tp*A1, Bp] + row split) faster than the direct
-    # permutation; re-measured in round 5 at B=32768 the direct (1, 2, 0)
-    # permute is 2x faster (7.8 vs 16.0 ms) — XLA's choice of transpose
-    # strategy changed with shape/scale.  (Also probed: MXU identity-dot
-    # transposes (einsum 'gbta,bc->tagc', bit-exact) ~11 ms, in-kernel
-    # VMEM transposes ~5 s — neither wins.)
-    probs_t = jnp.transpose(probs_p, (1, 2, 0))
-    thr = jnp.asarray(beam_cut_threshold, jnp.float32).reshape(1, 1)
+    # [T, A1, Bp]: reads on the minor axis so per-step loads coalesce
+    probs_t = jnp.transpose(probs.astype(jnp.float32), (1, 2, 0))
+    lens = jnp.asarray(lengths, jnp.int32)
+    if Bp != B:
+        probs_t = jnp.pad(probs_t, ((0, 0), (0, 0), (0, Bp - B)))
+        lens = jnp.pad(lens, (0, Bp - B))
+    thr = jnp.asarray(beam_cut_threshold, jnp.float32).reshape(1)
 
-    grid = (Bp // Bt, Tp // TB)
-    kernel = functools.partial(
-        _KERNEL_VARIANTS[version],
-        K=K, KP=KP, A=A, TB=TB, collapse=collapse_repeats,
-    )
+    vec = pl.BlockSpec((Bt,), lambda i: (i,))
     ids_log, fin, err = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda i, j: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((TB, A1, Bt), lambda i, j: (j, 0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-            ],
-            out_specs=[
-                pl.BlockSpec((TB, KP, Bt), lambda i, j: (j, 0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((KP, Bt), jnp.float32),
-                pltpu.VMEM((KP, Bt), jnp.float32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((1, Bt), jnp.int32),
-            ],
+        functools.partial(
+            _beam_kernel, K=K, A=A, T=T, collapse=collapse_repeats,
+            interpret=interpret,
         ),
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, KP, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
+        grid=(Bp // Bt,),
+        in_specs=[
+            pl.BlockSpec((1,), lambda i: (0,)),
+            pl.BlockSpec((T, A1, Bt), lambda i: (0, 0, i)),
+            vec,
         ],
-        interpret=interpret,
-    )(thr, probs_t, lens_p)
-
-    if raw:  # kernel outputs only (stage timing / custom tracebacks)
-        return {"ids_log": ids_log, "fin": fin, "err": err[0, :B]}
-
-    # gather-free batched traceback directly over the kernel's id-log
-    # layout.  "pallas" fuses the backward walk + key pack + transpose in
-    # one kernel (traceback_pallas_batch); "scan" is the XLA form
-    # (_traceback_scan_batch — itself the fix for the vmapped pointer
-    # walk, 48 of the 58 ms round-1 batch).  "auto" = pallas whenever the
-    # packed key fits (the scan form needs the same bound for its fast
-    # branch, and beyond it falls to a stable 3-operand sort).
-    from .beam_fast import _key_bits, _sort_unpack_keys
-
-    lab_bits, t_bits = _key_bits(T, A)
-    if traceback == "auto":
-        traceback = "pallas" if lab_bits + t_bits <= 30 else "scan"
-    if traceback == "pallas":
-        # ids_log/fin are already padded to (Tp, KP, Bp)/(1, Bp) — feed
-        # them to the fused walk directly (no copy) and slice the keys
-        key_bt = _traceback_pallas_keys(
-            fin, ids_log, T=T, K=K, A=A, TB=TB, Bt=Bt, interpret=interpret
-        )
-        labels_rev, times_rev = _sort_unpack_keys(
-            key_bt[:B, :T], T, lab_bits, t_bits
-        )
-        count = jnp.sum((labels_rev >= 0).astype(jnp.int32), axis=-1)
-    else:
-        labels_rev, times_rev, count = _traceback_scan_batch(
-            fin[0, :B], ids_log[:T, :, :B], T, K, A
-        )
-    return {
-        "labels_rev": labels_rev,
-        "times_rev": times_rev,
-        "count": count,
-        "err": err[0, :B],
-    }
-
-
-# --------------------------------------------------------------- CRF variant
-
-
-def _crf_beam_kernel(
-    thr_ref,  # SMEM (1, 1) f32
-    probs_ref,  # VMEM (TB, S*8, Bt) f32 — rows s*8 + a (A1 <= 8, padded)
-    init_ref,  # VMEM (SP, Bt) f32 init_state per read (rows >= S are -inf)
-    len_ref,  # VMEM (1, Bt) i32
-    ids_out_ref,  # VMEM (TB, KP, Bt) i32
-    fin_ref,  # VMEM (1, Bt) i32
-    err_out_ref,  # VMEM (1, Bt) i32
-    # scratch
-    lab_ref, gap_ref,  # (KP, Bt) f32
-    h1_ref, h2_ref,  # (KP, Bt) i32
-    ll_ref,  # (KP, Bt) i32 last label (-1 root)
-    st_ref,  # (KP, Bt) i32 CRF transition state
-    id_ref,  # (KP, Bt) i32
-    va_ref,  # (KP, Bt) i32
-    er_ref,  # (1, Bt) i32
-    *,
-    K: int,
-    KP: int,
-    A: int,
-    S: int,
-    S2: int,
-    TB: int,
-):
-    """CRF prefix beam search (reference /root/reference/src/search.rs:38-157)
-    as one fused kernel; hash-identity semantics of
-    ops/beam_fast.crf_beam_search_fast_device.
-
-    The CRF twist vs the plain kernel (_beam_kernel): every tip carries a
-    transition state s_k, its per-step probability row is
-    ``probs[t, s_k, :]`` — a per-lane dynamic row — and emitting label l
-    moves to ``(s_k * n_base) % n_state + l`` (search.rs:97).  The row
-    fetch runs as a log2(S)-level binary select tree over the state axis
-    (state-bit-driven halvings), which is ~S/log S cheaper than a one-hot
-    masked reduction; there is no repeat-collapse branch (search.rs:90-99).
-    """
-    j = pl.program_id(1)
-    Bt = len_ref.shape[1]
-    KA = np.int32(K * A)
-
-    @pl.when(j == 0)
-    def _init():
-        # beam init from init_state max/argmax (search.rs:54-59)
-        best = init_ref[0:1, :]
-        arg = jnp.zeros((1, Bt), jnp.int32)
-        for s in range(1, S):
-            row = init_ref[s : s + 1, :]
-            better = row > best
-            arg = jnp.where(better, s, arg)
-            best = jnp.where(better, row, best)
-        row0 = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0) == 0
-        lab_ref[:] = jnp.where(row0, best, 0.0).astype(jnp.float32)
-        gap_ref[:] = jnp.where(row0, init_ref[0:1, :], 0.0).astype(jnp.float32)
-        st_ref[:] = jnp.where(row0, arg, 0).astype(jnp.int32)
-        h1_ref[:] = jnp.where(row0, _SEED1, 0).astype(jnp.int32)
-        h2_ref[:] = jnp.where(row0, _SEED2, 0).astype(jnp.int32)
-        ll_ref[:] = jnp.full((KP, Bt), -1, jnp.int32)
-        id_ref[:] = jnp.where(row0, -1, -2).astype(jnp.int32)
-        va_ref[:] = jnp.where(row0, 1, 0).astype(jnp.int32)
-        er_ref[:] = jnp.zeros((1, Bt), jnp.int32)
-
-    thr = thr_ref[0, 0]
-    lens = len_ref[:]
-    slot = jax.lax.broadcasted_iota(jnp.int32, (KP, Bt), 0)
-    in_beam = slot < K
-    SBITS = max(S2 - 1, 1).bit_length()
-
-    def step(jt, _):
-        t = j * TB + jt
-        err = er_ref[:]
-        active = (t < lens) & (err == 0)
-
-        lab = lab_ref[:]
-        gap = gap_ref[:]
-        h1 = h1_ref[:]
-        h2 = h2_ref[:]
-        lastlab = ll_ref[:]
-        state = st_ref[:]
-        idv = id_ref[:]
-        valid = (va_ref[:] != 0) & in_beam
-
-        ids_out_ref[jt] = idv
-
-        block = probs_ref[jt]  # (S*8, Bt)
-
-        def tip_row(s_k):
-            """(8, Bt) probability rows probs[t, s_k, :] for one tip:
-            binary select tree over the (power-of-two padded) state axis
-            driven by s_k's bits."""
-            cur = block  # (S2*8, Bt) value
-            size = S2
-            while size > 1:
-                half = size // 2
-                hi_sel = (s_k & np.int32(half)) != 0
-                cur = jnp.where(hi_sel, cur[half * 8 :, :], cur[: half * 8, :])
-                size = half
-            return cur
-
-        prows = [tip_row(state[k : k + 1, :]) for k in range(K)]
-        lg = lab + gap
-
-        # per-(tip, label) expansion pieces
-        th1 = [_mix1_i32(h1, a) for a in range(A)]
-        th2 = [_mix2_i32(h2, a) for a in range(A)]
-        p0_rows = [prows[k][0:1, :] for k in range(K)]
-        pl_rows = [[prows[k][1 + a : 2 + a, :] for a in range(A)] for k in range(K)]
-
-        # matching: extension (k, a) targets tip jj iff child hash matches
-        # (state equality is implied: the prefix determines the state).
-        # The label term folds into the first hash compare (xor label*C
-        # into both sides) and validity poisons the tip side — a false
-        # match then needs both folded-h1 and full-h2 aliasing at once,
-        # the same ~2^-64 budget as the double-hash test (see
-        # _beam_kernel2's match).
-        LC = _u(0x61C88647)
-        phl1 = jnp.where(valid, h1 ^ (lastlab * LC), _u(0x5D5D5D5D))
-        th1f = [th1[a] ^ _u((a * int(np.uint32(0x61C88647))) & 0xFFFFFFFF)
-                for a in range(A)]
-        match = [[None] * K for _ in range(A)]
-        matched = [jnp.zeros((KP, Bt), bool) for _ in range(A)]
-        for jj in range(K):
-            pj1 = phl1[jj : jj + 1, :]
-            hj2 = h2[jj : jj + 1, :]
-            for a in range(A):
-                m = (th1f[a] == pj1) & (th2[a] == hj2)
-                match[a][jj] = m
-                matched[a] = matched[a] | m
-
-        # per-tip masses; no collapse/stay branch for CRF
-        # m_ext[a] rows: row k = (lab+gap)_k * probs[s_k, 1+a]
-        m_ext = []
-        pushed = []
-        for a in range(A):
-            pla = jnp.zeros((KP, Bt), jnp.float32)
-            for k in range(K):
-                pla = jnp.where(slot == k, pl_rows[k][a], pla)
-            m_ext.append(lg * pla)
-            pushed.append(valid & ~(pla < thr))
-        push_ext = pushed
-
-        # recv[jj]: sum the per-a masked planes FIRST (cheap elementwise),
-        # then one 8-row reduce per jj (was A reduces per jj); the "any
-        # arrival" bits ride ONE or-reduce of a target bitmask (was K*A
-        # reductions)
-        recv_rows = []
-        tgt_bits = jnp.zeros((KP, Bt), jnp.int32)
-        for jj in range(K):
-            inner = jnp.zeros((KP, Bt), jnp.float32)
-            for a in range(A):
-                sel = match[a][jj] & push_ext[a]
-                inner = inner + jnp.where(sel, m_ext[a], 0.0)
-                tgt_bits = tgt_bits | jnp.where(sel, np.int32(1 << jj), 0)
-            recv_rows.append(jnp.sum(inner, axis=0, keepdims=True))
-        pad = [jnp.zeros((1, Bt), jnp.float32)] * (KP - K)
-        recv = jnp.concatenate(recv_rows + pad, axis=0)
-        got_bits = jnp.max(tgt_bits, axis=0, keepdims=True)
-        recv_any = (
-            jax.lax.shift_right_logical(
-                jnp.broadcast_to(got_bits, (KP, Bt)), slot
-            )
-            & 1
-        ) != 0
-
-        p0 = jnp.zeros((KP, Bt), jnp.float32)
-        for k in range(K):
-            p0 = jnp.where(slot == k, p0_rows[k], p0)
-        blank_push = valid & (p0 > thr)
-        blank_gap = jnp.where(blank_push, lg * p0, 0.0)
-
-        tip_lab = recv
-        tip_gap = blank_gap
-        tip_valid = blank_push | recv_any
-
-        def key_of(v, tot):
-            return jnp.where(
-                v, jnp.where(jnp.isnan(tot), POS_INF, tot + 0.0), NEG_INF
-            )
-
-        base_id = t * KA
-        tip_tot = tip_lab + tip_gap
-
-        def catk(tip_arr, fresh_arrs):
-            return jnp.concatenate([tip_arr] + list(fresh_arrs), axis=0)
-
-        fvs = [push_ext[a] & ~matched[a] & in_beam for a in range(A)]
-        m_ext_v = [jnp.where(fvs[a], m_ext[a], 0.0) for a in range(A)]
-        c_key = catk(
-            key_of(tip_valid, tip_tot),
-            [key_of(fvs[a], m_ext_v[a]) for a in range(A)],
-        )
-        fresh_k_id = slot * np.int32(A)
-        c_id = catk(idv, [base_id + fresh_k_id + np.int32(a) for a in range(A)])
-
-        if K == 1:
-            c_valid = c_key > NEG_INF
-            cnt = jnp.sum(jnp.where(c_valid, 1, 0), axis=0, keepdims=True)
-
-        # id comes from the min-id pass and lastlab from the id's low
-        # bits; a fresh winner's lab IS the max key (gap = 0); its
-        # hashes/state are reconstructed after the rounds from its source
-        # tip row (id arithmetic), so no fresh-region field planes or
-        # per-round h/state picks exist at all (see _beam_kernel2).
-        sel_rows = []
-        top = None
-        mx1 = None
-        key = c_key
-        for _ in range(K):
-            mx = jnp.max(key, axis=0, keepdims=True)
-            if mx1 is None:
-                mx1 = mx
-            slot_valid = mx > NEG_INF
-            at = key == mx
-            sid = jnp.min(jnp.where(at, c_id, _I32_MAX), axis=0, keepdims=True)
-            chosen = at & (c_id == sid)
-            ch_t = chosen[:KP]
-
-            def pick_t(arr, z):
-                return jnp.sum(jnp.where(ch_t, arr, z), axis=0, keepdims=True)
-
-            isf = sid >= base_id
-            sel_lab = jnp.where(isf, mx, pick_t(tip_lab, 0.0))
-            sel_gap = jnp.where(isf, 0.0, pick_t(tip_gap, 0.0))
-            # fresh source row k from the id; tip winner's own slot from
-            # one 8-row min over the chosen tip row.  Fresh candidate ids
-            # are base_id + k*A + a with k the SLOT (fresh_k_id), so the
-            # decode k = (sid - base_id) // A is the source row directly.
-            k_fresh = jax.lax.div(sid - base_id, np.int32(A))
-            jj_tip = jnp.min(
-                jnp.where(ch_t, slot, np.int32(KP)), axis=0, keepdims=True
-            )
-            src = jnp.where(isf, k_fresh, jj_tip)
-            acc = [
-                sel_lab, sel_gap,
-                jnp.where(slot_valid, sid, -2),
-                jnp.where(sid < 0, -1, sid % np.int32(A)),
-                isf, src,
-            ]
-            if top is None:
-                top = sel_lab + sel_gap
-            key = jnp.where(chosen, NEG_INF, key)
-            sel_rows.append((slot_valid, acc))
-
-        # error flags from the rounds (same scheme + the same documented
-        # +/-inf-input deviation as _beam_kernel2)
-        empty_flag = ~sel_rows[0][0]
-        if K == 1:
-            two_plus = cnt >= 2
-        else:
-            two_plus = sel_rows[1][0]
-        nan_flag = (mx1 == POS_INF) & two_plus
-
-        step_err = jnp.where(
-            nan_flag,
-            errors.INCOMPARABLE_VALUES,
-            jnp.where(empty_flag, errors.RAN_OUT_OF_BEAM, errors.OK),
-        ).astype(jnp.int32)
-        er_ref[:] = jnp.where(
-            err > 0, err, jnp.where(active, step_err, 0)
-        ).astype(jnp.int32)
-
-        # ---- reconstruct the winners' hash/state planes once ----
-        srcl = jnp.zeros((KP, Bt), jnp.int32)
-        isfp = jnp.zeros((KP, Bt), bool)
-        nll = jnp.full((KP, Bt), -1, jnp.int32)
-        for r in range(K):
-            _, acc = sel_rows[r]
-            rm = slot == r
-            srcl = jnp.where(rm, acc[5], srcl)
-            isfp = isfp | (rm & acc[4])
-            nll = jnp.where(rm, acc[3], nll)
-        hsel1 = jnp.zeros((KP, Bt), jnp.int32)
-        hsel2 = jnp.zeros((KP, Bt), jnp.int32)
-        stsel = jnp.zeros((KP, Bt), jnp.int32)
-        for r in range(K):
-            sm = srcl == r
-            hsel1 = jnp.where(sm, h1[r : r + 1, :], hsel1)
-            hsel2 = jnp.where(sm, h2[r : r + 1, :], hsel2)
-            stsel = jnp.where(sm, state[r : r + 1, :], stsel)
-        nh1 = jnp.where(
-            isfp,
-            _mix_plane(hsel1, _mix_c_plane(nll, 0xC2B2AE35, 0x165667B1),
-                       0xC2B2AE35),
-            hsel1,
-        )
-        nh2 = jnp.where(
-            isfp,
-            _mix_plane(hsel2, _mix_c_plane(nll, 0x27D4EB2F, 0x9E3779B1),
-                       0x27D4EB2F),
-            hsel2,
-        )
-        nst = jnp.where(
-            isfp, (stsel * np.int32(A)) % np.int32(S) + nll, stsel
-        )
-
-        actp = active & in_beam
-        h1_ref[:] = jnp.where(actp, nh1, h1)
-        h2_ref[:] = jnp.where(actp, nh2, h2)
-        st_ref[:] = jnp.where(actp, nst, state)
-
-        for r in range(K):
-            slot_valid, acc = sel_rows[r]
-            g = lambda new, old: jnp.where(active, new, old)
-            rs = slice(r, r + 1)
-            lab_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[0] / top, 0.0), lab_ref[rs, :]
-            )
-            gap_ref[rs, :] = g(
-                jnp.where(slot_valid, acc[1] / top, 0.0), gap_ref[rs, :]
-            )
-            id_ref[rs, :] = g(jnp.where(slot_valid, acc[2], -2), id_ref[rs, :])
-            ll_ref[rs, :] = g(acc[3], ll_ref[rs, :])
-            va_ref[rs, :] = g(
-                jnp.where(slot_valid, 1, 0).astype(jnp.int32), va_ref[rs, :]
-            )
-        return 0
-
-    jax.lax.fori_loop(0, TB, step, 0, unroll=TB if TB <= 8 else 1)
-    fin_ref[:] = id_ref[0:1, :]
-    err_out_ref[:] = er_ref[:]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("beam_size", "block_t", "block_b", "interpret"),
-)
-def crf_beam_search_pallas_batch(
-    probs: jnp.ndarray,  # [B, T, S, A+1] f32
-    init_states: jnp.ndarray,  # [B, S] f32
-    lengths: jnp.ndarray,  # [B] i32
-    beam_cut_threshold,
-    *,
-    beam_size: int,
-    block_t: int = 16,
-    block_b: int = 128,
-    interpret: bool = False,
-):
-    """Fused-kernel batched CRF beam search; crf_beam_search_fast_batch
-    output contract (labels_rev / times_rev / count / err)."""
-    B, T, S, A1 = probs.shape
-    A = A1 - 1
-    K = beam_size
-    KP = max(-(-K // 8) * 8, 8)
-    if A1 > 8:
-        raise ValueError("crf pallas kernel supports alphabets up to 8")
-    TB = min(block_t, max(T, 1))
-    Bt = min(block_b, max(B, 1))
-    Tp = -(-T // TB) * TB
-    Bp = -(-B // Bt) * Bt
-
-    # state axis padded to a power of two for the kernel's select tree
-    # (real states are < S, so pad rows are never selected)
-    S2 = S if S & (S - 1) == 0 else 1 << S.bit_length()
-    probs_p = jnp.pad(
-        probs, ((0, Bp - B), (0, Tp - T), (0, S2 - S), (0, 8 - A1))
-    )
-    probs_t = jnp.transpose(probs_p, (1, 2, 3, 0)).reshape(Tp, S2 * 8, Bp)
-    SP = -(-S // 8) * 8
-    init_t = jnp.transpose(
-        jnp.pad(
-            jnp.asarray(init_states, jnp.float32),
-            ((0, Bp - B), (0, SP - S)),
-            constant_values=-np.inf,
-        ),
-        (1, 0),
-    )
-    lens_p = jnp.pad(jnp.asarray(lengths, jnp.int32), (0, Bp - B)).reshape(
-        1, Bp
-    )
-    thr = jnp.asarray(beam_cut_threshold, jnp.float32).reshape(1, 1)
-
-    grid = (Bp // Bt, Tp // TB)
-    kernel = functools.partial(
-        _crf_beam_kernel, K=K, KP=KP, A=A, S=S, S2=S2, TB=TB
-    )
-    ids_log, fin, err = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda i, j: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((TB, S2 * 8, Bt), lambda i, j: (j, 0, i)),
-                pl.BlockSpec((SP, Bt), lambda i, j: (0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-            ],
-            out_specs=[
-                pl.BlockSpec((TB, KP, Bt), lambda i, j: (j, 0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-                pl.BlockSpec((1, Bt), lambda i, j: (0, i)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((KP, Bt), jnp.float32),
-                pltpu.VMEM((KP, Bt), jnp.float32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((KP, Bt), jnp.int32),
-                pltpu.VMEM((1, Bt), jnp.int32),
-            ],
-        ),
+        out_specs=[pl.BlockSpec((T, K, Bt), lambda i: (0, 0, i)), vec, vec],
         out_shape=[
-            jax.ShapeDtypeStruct((Tp, KP, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
-            jax.ShapeDtypeStruct((1, Bp), jnp.int32),
+            jax.ShapeDtypeStruct((T, K, Bp), jnp.int32),
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),
+            jax.ShapeDtypeStruct((Bp,), jnp.int32),
         ],
-        # the (TB, S2*8, Bt) probs block is the VMEM hog (S=64 pads to
-        # 512 rows); raise Mosaic's 16 MB scoped-vmem default so useful
-        # block sizes compile (v5e has 128 MB)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
+        backend="triton",
+        compiler_params=_params(Bt),
+        name="ctc_beam_decode",
         interpret=interpret,
-    )(thr, probs_t, init_t, lens_p)
+    )(thr, probs_t, lens)
 
-    labels_rev, times_rev, count = _traceback_scan_batch(
-        fin[0, :B], ids_log[:T, :, :B], T, K, A
+    if raw:
+        return {"ids_log": ids_log[:, :, :B], "fin": fin[:B], "err": err[:B]}
+    labels_rev, times_rev, count = _traceback_call(
+        fin, ids_log, T=T, K=K, A=A, Bt=Bt, interpret=interpret
     )
     return {
-        "labels_rev": labels_rev,
-        "times_rev": times_rev,
-        "count": count,
-        "err": err[0, :B],
+        "labels_rev": labels_rev[:B],
+        "times_rev": times_rev[:B],
+        "count": count[:B],
+        "err": err[:B],
     }

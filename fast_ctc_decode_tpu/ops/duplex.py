@@ -1,4 +1,4 @@
-"""2-D duplex pair-consensus beam search (plain + CRF), TPU-native.
+"""2-D duplex pair-consensus beam search (plain + CRF) on device arrays.
 
 Reference semantics: /root/reference/src/duplex.rs (beam_search 443-650,
 crf_beam_search 652-834).  The algorithm (Silvestre-Ryan & Holmes pair
@@ -9,7 +9,7 @@ envelope ``[T1, 2]``.  A hypothesis scores as
 ``prob_1.probability() * max(band totals)`` — all in log-space f32
 (duplex.rs:144-149).
 
-TPU-first redesign:
+Accelerator-first redesign:
 
  - Bands are fixed-width rows ``band_label/band_gap [max_nodes, W]`` with a
    per-node ``offset/len`` window, where the static width
@@ -28,8 +28,8 @@ TPU-first redesign:
    envelope) the entire extension phase is compiled out.
 
  - log-space arithmetic uses exact exp/log1p on the VPU — the reference's
-   ``fastexp`` polynomial (src/fastexp.rs) is a scalar-CPU trick with no TPU
-   reason to exist; this matches the reference built without the ``fastexp``
+   ``fastexp`` polynomial (src/fastexp.rs) is a scalar-CPU trick with no
+   reason to exist on vector hardware; this matches the reference built without the ``fastexp``
    feature.  The logsumexp orders operands by magnitude exactly like
    LogSpace::Add (duplex.rs:42-63), including NaN propagation, and
    LogSpace::max never admits NaN (duplex.rs:33-39).
@@ -88,12 +88,10 @@ def _band_get(carry: DuplexCarry, root_gap, nodes, t2_idx, N, W, Wr):
     Virtual root (node < 0) reads the precomputed root band (offset -1,
     gap-only — duplex.rs:389-409); out-of-window reads are ProbPair::zero.
 
-    Implementation note: a 2-D ``arr[rows, cols]`` gather inside a scan is
-    catastrophically slow on TPU (~ms per step).  Because the column index
-    is consecutive per row, each row is one ``dynamic_slice`` of width W
-    from the band table plus a roll — K tiny slices instead of a K*W
-    gather.  This single change takes the exact banded duplex engine from
-    seconds to tens of milliseconds per pair.
+    Implementation note: a 2-D ``arr[rows, cols]`` gather inside a scan
+    lowers to a general gather.  Because the column index is consecutive
+    per row, each row is one ``dynamic_slice`` of width W from the band
+    table plus a roll — K tiny slices instead of a K*W gather.
     """
     K = nodes.shape[0]
     is_root = nodes < 0
@@ -237,7 +235,7 @@ def _extend_bands(
         # missed range), but the typical extension is the per-step envelope
         # growth of 1-2 cells — a fori over the global bound made every
         # step pay for the catch-up case (~460 masked iterations on a
-        # diagonal envelope; this while_loop was a ~5x end-to-end win)
+        # diagonal envelope)
         def jcond(stt):
             j = stt[0]
             return act & (j < n_new) & (j < Wext)
@@ -724,8 +722,8 @@ def duplex_exact_batch(
     """vmap of the bit-exact tree engine over a batch of pairs.
 
     Batching amortizes the sequential band DP across reads (XLA vectorizes
-    every inner step over B), turning ~0.26 s/pair single calls into tens
-    of pairs/s; memory is B x max_nodes x W x 8 bytes of band tables."""
+    every inner step over B); memory is B x max_nodes x W x 8 bytes of
+    band tables."""
     fn = lambda a, b, rg, l, h, s, n: duplex_device(
         a, b, rg, l, h, threshold_log, s, n,
         beam_size=beam_size, collapse_repeats=collapse_repeats,

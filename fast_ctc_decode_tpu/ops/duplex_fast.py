@@ -360,8 +360,8 @@ def _make_step(
 
             def l2r(t2, state, lastlab):
                 # single-row dynamic_slice from the state-major copy — a
-                # flat (t2*S + state) take is a gather, which is
-                # catastrophically slow inside a scan on TPU
+                # flat (t2*S + state) take is a general gather inside
+                # the scan
                 r = jax.lax.dynamic_slice(
                     l2T,
                     (jnp.clip(state, 0, S - 1), jnp.clip(t2, 0, T2 - 1), 0),

@@ -1,4 +1,4 @@
-"""Viterbi (greedy argmax) CTC decoding, TPU-native.
+"""Viterbi (greedy argmax) CTC decoding on device arrays.
 
 Reference semantics (/root/reference/src/search.rs:320-383): per-frame argmax
 (first occurrence of the max wins — the fold at src/search.rs:303-318 uses a
@@ -8,8 +8,8 @@ emitting frame; a per-run mean label probability becomes one phred char per
 emitted label, flushed when the *next* emit happens (or at the end).  The run
 accumulator keeps counting over collapsed repeats and is not reset by blanks.
 
-TPU design: the per-frame argmax/max is one wide fused reduction over the
-``[T, A]`` posterior block (VPU).  Emission, path extraction and run-mean
+Device design: the per-frame argmax/max is one wide fused reduction over
+the ``[T, A]`` posterior block.  Emission, path extraction and run-mean
 quality are computed with masks/cumsums — no sequential host loop.  Ragged
 reads are handled with a per-read ``length`` and padding rows masked to
 blanks.  Batched decoding is ``vmap`` over reads.

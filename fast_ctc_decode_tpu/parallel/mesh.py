@@ -1,8 +1,10 @@
 """Device mesh helpers for data-parallel decoding.
 
-A 1-D ``data`` mesh shards read batches across chips (ICI within a slice,
-DCN across hosts).  Multi-host runs initialize the JAX distributed runtime
-first; single-process multi-device works out of the box.
+A 1-D ``data`` mesh shards read batches across devices: reads never
+communicate, so the mesh follows the algorithm (one axis), and one process
+drives all of a host's GPUs.  Multi-host runs initialize the JAX
+distributed runtime first; single-process multi-device works out of the
+box.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ def distributed_init(
 ) -> None:
     """Initialize the multi-host runtime (no-op if already initialized).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU multi-process runs.
+    Pass the coordinator address, process count and process id
+    explicitly: nothing in a plain GPU or CPU environment provides them.
     """
     try:
         jax.distributed.initialize(

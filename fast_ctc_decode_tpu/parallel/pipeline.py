@@ -27,6 +27,7 @@ from ..alphabet import normalize_alphabet
 from ..ops import beam as beam_ops
 from ..ops import beam_fast as beam_fast_ops
 from ..ops import viterbi as viterbi_ops
+from ..device import beam_engine
 from .mesh import DATA_AXIS, batch_sharding, make_data_mesh
 
 
@@ -38,16 +39,18 @@ class BatchBeamDecoder:
     lengths, with B divisible by the mesh size.
 
     ``engine`` selects the device kernel:
-      - "pallas" (default on TPU): fully fused Pallas kernel
-        (ops/beam_pallas.py) — bit-identical to "fast", several times
-        faster; runs interpreted (slow) off-TPU.
+      - "pallas": the fused Triton kernel (ops/beam_pallas.py) —
+        bit-identical to "fast" on the CPU, the whole T loop in one kernel.
+        It compiles for the GPU only; elsewhere it needs ``interpret=True``
+        (tests).
       - "fast": hash-identity scan engine (ops/beam_fast.py) — O(beam)
         scan state, sequence-exact vs the reference; ``path`` entries for
         pruned-and-re-derived prefixes report their latest creation time.
       - "exact": flattened-suffix-tree engine (ops/beam.py) — bit-exact
         path and tie-break parity at much lower throughput; honours
         ``max_nodes``.
-      - None (default): "pallas" on TPU backends, "fast" elsewhere.
+      - None (default): ``device.beam_engine()`` — "pallas" on the GPU,
+        "fast" elsewhere.
     """
 
     def __init__(
@@ -60,6 +63,7 @@ class BatchBeamDecoder:
         max_nodes: Optional[int] = None,
         mesh=None,
         engine: Optional[str] = None,
+        interpret: bool = False,
     ):
         self.alphabet = normalize_alphabet(alphabet)
         self.T = int(T)
@@ -67,7 +71,7 @@ class BatchBeamDecoder:
         self.threshold = np.float32(beam_cut_threshold)
         self.collapse = bool(collapse_repeats)
         if engine is None:
-            engine = "pallas" if jax.default_backend() == "tpu" else "fast"
+            engine = beam_engine()
         if engine not in ("pallas", "fast", "exact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
@@ -81,7 +85,7 @@ class BatchBeamDecoder:
                 beam_pallas_ops.beam_search_pallas_batch,
                 beam_size=self.beam_size,
                 collapse_repeats=self.collapse,
-                interpret=jax.default_backend() != "tpu",
+                interpret=interpret,
             )
         elif engine == "fast":
             kernel = functools.partial(
@@ -103,34 +107,6 @@ class BatchBeamDecoder:
                 collapse_repeats=self.collapse,
                 max_nodes=self.max_nodes,
             )
-            # bit-exact fused tree kernel (ops/beam_exact_pallas.py) on
-            # TPU when the beam fits its static entry space; reads that
-            # overflow its node budget re-run on the XLA engine below
-            # (whose budget is the true worst case)
-            from ..ops import beam_exact_pallas as bxp_ops
-
-            A = len(self.alphabet) - 1
-            if (
-                jax.default_backend() == "tpu"
-                and bxp_ops.exact_pallas_ok(self.beam_size, A)
-            ):
-                kn = min(self.max_nodes, bxp_ops.DEFAULT_KERNEL_NODES)
-                self._exact_kernel_fn = jax.jit(
-                    jax.shard_map(
-                        lambda p, l: bxp_ops.beam_search_exact_pallas_batch(
-                            p, l, self.threshold,
-                            beam_size=self.beam_size,
-                            collapse_repeats=self.collapse,
-                            max_nodes=kn,
-                        ),
-                        mesh=self.mesh,
-                        in_specs=(P(DATA_AXIS), P(DATA_AXIS)),
-                        out_specs=P(DATA_AXIS),
-                        check_vma=False,
-                    )
-                )
-            else:
-                self._exact_kernel_fn = None
         call = lambda p, l: kernel(p, l, self.threshold)
         if engine == "pallas":
             # a pallas_call does not partition under pjit — shard-map it so
@@ -154,30 +130,9 @@ class BatchBeamDecoder:
     def decode_arrays(self, probs, lengths):
         """Device decode only — returns the raw fixed-width result dict
         (labels_rev, times_rev, count, err), sharded over the mesh."""
-        probs = jnp.asarray(probs, jnp.float32)
-        lengths = jnp.asarray(lengths, jnp.int32)
-        if self.engine == "exact" and getattr(self, "_exact_kernel_fn", None):
-            out = jax.device_get(self._exact_kernel_fn(probs, lengths))
-            out = {k: np.array(v) for k, v in out.items()}
-            bad = np.flatnonzero(out["err"] == errors.NODE_OVERFLOW)
-            if len(bad):
-                # pad the overflow subset to a full device batch and
-                # re-run on the XLA engine (true worst-case budget)
-                n_dev = len(self.mesh.devices.reshape(-1))
-                padded = np.concatenate(
-                    [bad, np.repeat(bad[-1:], (-len(bad)) % n_dev)]
-                )
-                sub = jax.device_get(
-                    self._fn(probs[padded], lengths[padded])
-                )
-                n = len(bad)
-                Tl = out["labels_rev"].shape[1]
-                out["labels_rev"][bad] = sub["labels_rev"][:n, :Tl]
-                out["times_rev"][bad] = sub["times_rev"][:n, :Tl]
-                out["count"][bad] = sub["count"][:n]
-                out["err"][bad] = sub["err"][:n]
-            return out
-        return self._fn(probs, lengths)
+        return self._fn(
+            jnp.asarray(probs, jnp.float32), jnp.asarray(lengths, jnp.int32)
+        )
 
     def decode(self, probs, lengths) -> List[Tuple[str, List[int], int]]:
         """Full decode: returns [(sequence, path, err_code)] per read.
@@ -265,32 +220,25 @@ class BatchViterbiDecoder:
 
 
 @functools.lru_cache(maxsize=64)
-def _decode_and_count_fn(mesh, beam_size, threshold, collapse, engine="fast"):
+def _decode_and_count_fn(mesh, beam_size, threshold, collapse, engine, interpret):
     """Cached jitted shard_map — rebuilding the jit wrapper per call would
-    recompile on every invocation (a 10x hit measured by
-    tools/scaling_bench.py's overhead mode)."""
-
+    recompile on every invocation."""
     if engine == "pallas":
         from ..ops import beam_pallas as beam_pallas_ops
 
+        decode = functools.partial(
+            beam_pallas_ops.beam_search_pallas_batch, interpret=interpret
+        )
+    elif engine == "fast":
+        decode = beam_fast_ops.beam_search_fast_batch
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+
     def shard_fn(p, l):
-        if engine == "pallas":
-            out = beam_pallas_ops.beam_search_pallas_batch(
-                p,
-                l,
-                jnp.float32(threshold),
-                beam_size=beam_size,
-                collapse_repeats=collapse,
-                interpret=jax.default_backend() != "tpu",
-            )
-        else:
-            out = beam_fast_ops.beam_search_fast_batch(
-                p,
-                l,
-                jnp.float32(threshold),
-                beam_size=beam_size,
-                collapse_repeats=collapse,
-            )
+        out = decode(
+            p, l, jnp.float32(threshold), beam_size=beam_size,
+            collapse_repeats=collapse,
+        )
         ok = jnp.sum((out["err"] == errors.OK).astype(jnp.int32))
         bad = jnp.sum((out["err"] != errors.OK).astype(jnp.int32))
         totals = jax.lax.psum(jnp.stack([ok, bad]), DATA_AXIS)
@@ -312,16 +260,17 @@ def _decode_and_count_fn(mesh, beam_size, threshold, collapse, engine="fast"):
 
 def decode_and_count(
     mesh, probs, lengths, *, beam_size, threshold, collapse, max_nodes=None,
-    engine="fast",
+    engine=None, interpret=False,
 ):
     """shard_map decode with an explicit psum over the data axis: every shard
     decodes its reads and all shards agree on the global (decoded, errored)
     counters — the cross-host merge the reference never had.  ``engine`` is
-    "fast" or "pallas" (``max_nodes`` is accepted for API compatibility and
-    ignored)."""
+    "fast", "pallas" or None (``device.beam_engine()``); ``max_nodes`` is
+    accepted for API compatibility and ignored."""
     del max_nodes
     fn = _decode_and_count_fn(
-        mesh, int(beam_size), float(threshold), bool(collapse), str(engine)
+        mesh, int(beam_size), float(threshold), bool(collapse),
+        str(engine or beam_engine()), bool(interpret),
     )
     return fn(probs, lengths)
 
@@ -361,7 +310,7 @@ def decode_many(
     T: Optional[int] = None,
     bucket_edges: Optional[Sequence[int]] = None,
     mesh=None,
-    engine: str = "fast",
+    engine: Optional[str] = None,
     checkpoint_path: Optional[str] = None,
 ) -> List[Tuple[str, List[int], int]]:
     """Decode a long list of variable-length reads with checkpoint/resume.
@@ -374,13 +323,15 @@ def decode_many(
     batches are padded with length-0 dummy reads, not duplicate decodes) and
     results are appended to the JSONL checkpoint per batch — a preempted run
     restarted with the same ``checkpoint_path`` resumes at exactly the
-    undecoded reads.  Results are returned in input order.
+    undecoded reads.  Results are returned in input order.  ``engine``
+    as in ``BatchBeamDecoder`` (None: the platform's batched engine).
     """
     from ..utils.checkpoint import DecodeCheckpoint
     from ..utils.padding import bucket_reads
 
     if not reads:
         return []
+    engine = engine or beam_engine()
     if T is not None:
         edges = [int(T)]
     elif bucket_edges is not None:
@@ -648,11 +599,8 @@ class BatchCrfBeamDecoder:
     lengths; sequence-exact vs the reference crf_beam_search (ops/beam_fast
     contract).
 
-    ``engine``: "pallas" (fused kernel, ops/beam_pallas.py — bit-identical
-    to "fast", much faster; interpreted off-TPU), "fast" (XLA scan),
-    "exact" (bit-exact path/tie parity — fused SMEM-tree kernel on TPU
-    with XLA overflow fallback, ops/beam_exact_pallas.py), or
-    None (auto: pallas on TPU when the alphabet fits, else fast).
+    ``engine``: "fast" (default; XLA scan, ops/beam_fast.py) or "exact"
+    (bit-exact path/tie parity: the XLA suffix-tree engine, ops/crf.py).
     """
 
     def __init__(
@@ -672,115 +620,31 @@ class BatchCrfBeamDecoder:
         self.threshold = np.float32(beam_cut_threshold)
         self.mesh = mesh if mesh is not None else make_data_mesh()
         self._sharding = batch_sharding(self.mesh)
-        if engine is None:
-            # kernel block VMEM: 16 * n_state * 8 * 128 * 4 bytes must fit
-            engine = (
-                "pallas"
-                if jax.default_backend() == "tpu"
-                and len(self.alphabet) <= 8
-                and self.n_state <= 256
-                else "fast"
-            )
-        if engine not in ("pallas", "fast", "exact"):
+        engine = engine or "fast"
+        if engine not in ("fast", "exact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
-        if engine == "pallas":
-            from ..ops import beam_pallas as beam_pallas_ops
-
-            kernel = functools.partial(
-                beam_pallas_ops.crf_beam_search_pallas_batch,
-                beam_size=self.beam_size,
-                interpret=jax.default_backend() != "tpu",
-            )
-            # a pallas_call does not partition under pjit — shard-map it
-            self._fn = jax.jit(
-                jax.shard_map(
-                    lambda p, s, l: kernel(p, s, l, self.threshold),
-                    mesh=self.mesh,
-                    in_specs=(P(DATA_AXIS),) * 3,
-                    out_specs=P(DATA_AXIS),
-                    check_vma=False,
-                )
-            )
-        elif engine == "exact":
-            # bit-exact path/tie parity: fused SMEM-tree kernel on TPU
-            # (ops/beam_exact_pallas.py), XLA tree engine elsewhere and
-            # for node-budget overflows
-            from ..ops import beam as beam_xops
-            from ..ops import beam_exact_pallas as bxp_ops
+        if engine == "exact":
             from ..ops import crf as crf_xops
 
-            A = len(self.alphabet) - 1
-            self.max_nodes = beam_xops.default_max_nodes(
-                self.T, self.beam_size, A
+            self.max_nodes = beam_ops.default_max_nodes(
+                self.T, self.beam_size, len(self.alphabet) - 1
             )
-            xla = lambda p, s, l: jax.vmap(
+            kernel = lambda p, s, l: jax.vmap(
                 lambda pp, ss, ll: crf_xops.crf_beam_search_device(
                     pp, ss, ll, self.threshold,
                     beam_size=self.beam_size, max_nodes=self.max_nodes,
                 )
             )(p, s, l)
-            self._crf_exact_xla_fn = jax.jit(
-                xla,
-                in_shardings=(self._sharding,) * 3,
-                out_shardings=self._sharding,
-            )
-            if (
-                jax.default_backend() == "tpu"
-                and bxp_ops.exact_pallas_ok(self.beam_size, A)
-                and self.n_state <= 32768
-            ):
-                kn = min(self.max_nodes, bxp_ops.DEFAULT_KERNEL_NODES)
-                kfn = jax.jit(
-                    jax.shard_map(
-                        lambda p, s, l: bxp_ops.crf_beam_search_exact_pallas_batch(
-                            p, s, l, self.threshold,
-                            beam_size=self.beam_size, max_nodes=kn,
-                        ),
-                        mesh=self.mesh,
-                        in_specs=(P(DATA_AXIS),) * 3,
-                        out_specs=P(DATA_AXIS),
-                        check_vma=False,
-                    )
-                )
-
-                def _fn(p, s, l):
-                    out = jax.device_get(kfn(p, s, l))
-                    out = {k: np.array(v) for k, v in out.items()}
-                    bad = np.flatnonzero(
-                        out["err"] == errors.NODE_OVERFLOW
-                    )
-                    if len(bad):
-                        n_dev = len(self.mesh.devices.reshape(-1))
-                        padded = np.concatenate(
-                            [bad, np.repeat(bad[-1:], (-len(bad)) % n_dev)]
-                        )
-                        sub = jax.device_get(
-                            self._crf_exact_xla_fn(
-                                p[padded], s[padded], l[padded]
-                            )
-                        )
-                        n = len(bad)
-                        Tl = out["labels_rev"].shape[1]
-                        out["labels_rev"][bad] = sub["labels_rev"][:n, :Tl]
-                        out["times_rev"][bad] = sub["times_rev"][:n, :Tl]
-                        out["count"][bad] = sub["count"][:n]
-                        out["err"][bad] = sub["err"][:n]
-                    return out
-
-                self._fn = _fn
-            else:
-                self._fn = self._crf_exact_xla_fn
         else:
-            kernel = functools.partial(
-                beam_fast_ops.crf_beam_search_fast_batch,
-                beam_size=self.beam_size,
+            kernel = lambda p, s, l: beam_fast_ops.crf_beam_search_fast_batch(
+                p, s, l, self.threshold, beam_size=self.beam_size
             )
-            self._fn = jax.jit(
-                lambda p, s, l: kernel(p, s, l, self.threshold),
-                in_shardings=(self._sharding,) * 3,
-                out_shardings=self._sharding,
-            )
+        self._fn = jax.jit(
+            kernel,
+            in_shardings=(self._sharding,) * 3,
+            out_shardings=self._sharding,
+        )
 
     def decode_arrays(self, probs, init_states, lengths):
         return self._fn(
@@ -819,13 +683,12 @@ class BatchDuplexDecoder:
     (full range), a shared ``[T1, 2]`` array, or per-pair ``[B, T1, 2]``.
 
     ``engine``:
-      - None (auto, parity-first): constant-window envelopes run the
-        fused Pallas slot-band kernel (TPU) or the XLA fast engine —
-        sequence-exact there; moving windows run the bit-exact tree
-        engine, batched (``ops.duplex.duplex_exact_batch``).
-      - "pallas" / "fast": slot-band semantics everywhere (re-derived
-        prefixes rebuild bands over the current window — measurably
-        different from the reference on moving windows, ~100x faster).
+      - None (auto, parity-first): constant-window envelopes run the XLA
+        fast engine — sequence-exact there; moving windows run the
+        bit-exact tree engine, batched (``ops.duplex.duplex_exact_batch``).
+      - "fast": slot-band semantics everywhere (re-derived prefixes
+        rebuild bands over the current window — measurably different
+        from the reference on moving windows, much faster).
       - "exact": the tree engine for everything.
     """
 
@@ -850,27 +713,9 @@ class BatchDuplexDecoder:
         self.collapse = bool(collapse_repeats)
         self.mesh = mesh if mesh is not None else make_data_mesh()
         self._sharding = batch_sharding(self.mesh)
-        if engine not in (None, "pallas", "fast", "exact", "exact-pallas"):
+        if engine not in (None, "fast", "exact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
-
-    def _pallas_eligible(self, ep, shared_env: bool) -> bool:
-        """The fused Pallas kernel (ops/duplex_pallas.py) covers batches that
-        share one monotone-lower-bound envelope with a band narrow enough to
-        keep every slot band VMEM-resident; everything else runs the XLA
-        engine.  Off-TPU the kernel only runs interpreted (slow), so auto
-        mode keeps XLA there."""
-        A = len(self.alphabet) - 1
-        Wp = -(-ep.W // 8) * 8
-        return (
-            shared_env
-            and (ep.rel_window or ep.static_window)
-            and Wp <= 256
-            and self.T2 * 8 * 128 * 4 <= 6 * 2**20  # l2 VMEM block budget
-            and self.beam_size <= 8
-            and self.beam_size * A <= 24
-            and A + 1 <= 8
-        )
 
     def decode(self, net1, net2, envelopes=None, lengths=None):
         """net1 [B, T1, A+1], net2 [B, T2, A+1] linear probabilities.
@@ -911,65 +756,39 @@ class BatchDuplexDecoder:
         engine = self.engine
         if engine is None:
             # auto is parity-first, mirroring api._pick_duplex_engine: the
-            # slot-band engines are sequence-exact only for constant-window
+            # slot-band engine is sequence-exact only for constant-window
             # envelopes; moving windows need reference band-reuse semantics
-            # — the fused tree kernel (ops/duplex_exact_pallas.py) on TPU,
-            # the batched XLA tree engine elsewhere
             constant_window = bool(
                 np.all(los == los[0, 0]) and np.all(his == his[0, 0])
             )
-            if constant_window:
-                engine = (
-                    "pallas"
-                    if jax.default_backend() == "tpu"
-                    and self._pallas_eligible(ep, shared_env)
-                    else "fast"
-                )
-            else:
-                engine = "exact"
-        if engine == "pallas" and not self._pallas_eligible(ep, shared_env):
-            raise ValueError(
-                "engine='pallas' needs a shared monotone envelope with "
-                "band width <= 256 (see BatchDuplexDecoder._pallas_eligible)"
-            )
+            engine = "fast" if constant_window else "exact"
 
-        if engine in ("exact", "exact-pallas"):
+        if engine == "exact":
             out = _exact_engine_out(
                 self, l1, l2, root_gap, los, his,
                 np.asarray(lengths, np.int32), thr, envelopes, shared_env,
-                engine, crf=False,
+                crf=False,
                 collapse=self.collapse,
                 init_states=np.zeros((B,), np.int32),
             )
             return self._assemble(out, B0)
 
-        if engine == "pallas":
-            fn = _duplex_pallas_fn(
-                self.mesh, self.beam_size, self.collapse, float(thr),
-                ep.W, ep.D, ep.needs_ext,
-            )
-            out = jax.device_get(
-                fn(l1, l2, root_gap, ep.lo, ep.hi,
-                   np.asarray(lengths, np.int32))
-            )
+        # shared envelopes ride in_axes=None so window starts stay
+        # scalars inside the vmapped scan (see duplex_fast_batch)
+        if shared_env:
+            lo_a, hi_a = los[0], his[0]
         else:
-            # shared envelopes ride in_axes=None so window starts stay
-            # scalars inside the vmapped scan (see duplex_fast_batch)
-            if shared_env:
-                lo_a, hi_a = los[0], his[0]
-            else:
-                lo_a, hi_a = los, his
-            fn = _duplex_fast_fn(
-                self.mesh, self.beam_size, self.collapse, float(thr),
-                W, Wr, Wext, needs_ext, False,
-                static_window, rel_window, D, shared_env,
-            )
-            out = jax.device_get(
-                fn(l1, l2, root_gap, lo_a, hi_a,
-                   np.zeros((l1.shape[0],), np.int32),
-                   np.asarray(lengths, np.int32))
-            )
-
+            lo_a, hi_a = los, his
+        fn = _duplex_fast_fn(
+            self.mesh, self.beam_size, self.collapse, float(thr),
+            W, Wr, Wext, needs_ext, False,
+            static_window, rel_window, D, shared_env,
+        )
+        out = jax.device_get(
+            fn(l1, l2, root_gap, lo_a, hi_a,
+               np.zeros((l1.shape[0],), np.int32),
+               np.asarray(lengths, np.int32))
+        )
         return self._assemble(out, B0)
 
     def _assemble(self, out, B0):
@@ -982,8 +801,7 @@ def _duplex_fast_fn(
     static_window, rel_window, D, shared_env,
 ):
     """Cached jitted shard_map over duplex_fast_batch — rebuilding the jit
-    wrapper per decode() call would recompile on every invocation (the
-    10x hit _decode_and_count_fn documents)."""
+    wrapper per decode() call would recompile on every invocation."""
     from ..ops import duplex_fast as duplex_fast_ops
 
     env_spec = (P(),) * 2 if shared_env else (P(DATA_AXIS),) * 2
@@ -1005,28 +823,6 @@ def _duplex_fast_fn(
 
 
 @functools.lru_cache(maxsize=32)
-def _duplex_pallas_fn(mesh, beam_size, collapse, thr, W, D, needs_ext):
-    """Cached jitted shard_map over the slot-band Pallas duplex kernel
-    (shared [T1] envelopes ride replicated args, not baked constants)."""
-    from ..ops import duplex_pallas as duplex_pallas_ops
-
-    return jax.jit(
-        jax.shard_map(
-            lambda a, c, rg, lo, hi, ln: duplex_pallas_ops.duplex_pallas_batch(
-                a, c, rg, lo, hi, np.float32(thr), ln,
-                beam_size=beam_size, collapse_repeats=collapse,
-                W=W, D=D, needs_ext=needs_ext,
-                interpret=jax.default_backend() != "tpu",
-            ),
-            mesh=mesh,
-            in_specs=(P(DATA_AXIS),) * 3 + (P(), P()) + (P(DATA_AXIS),),
-            out_specs=P(DATA_AXIS),
-            check_vma=False,
-        )
-    )
-
-
-@functools.lru_cache(maxsize=32)
 def _duplex_exact_xla_fn(
     mesh, beam_size, collapse, thr, N, We, Wre, Wxe, ne, crf,
 ):
@@ -1040,27 +836,6 @@ def _duplex_exact_xla_fn(
                 beam_size=beam_size, collapse_repeats=collapse,
                 max_nodes=N, W=We, Wr=Wre, Wext=Wxe,
                 needs_ext=ne, crf=crf,
-            ),
-            mesh=mesh,
-            in_specs=(P(DATA_AXIS),) * 7,
-            out_specs=P(DATA_AXIS),
-            check_vma=False,
-        )
-    )
-
-
-@functools.lru_cache(maxsize=32)
-def _duplex_exact_pallas_fn(mesh, beam_size, collapse, thr, N, ne, crf):
-    """Cached jitted shard_map over the fused tree-engine duplex kernel."""
-    from ..ops import duplex_exact_pallas as dxp
-
-    return jax.jit(
-        jax.shard_map(
-            lambda a, c, rg, lo_, hi_, st, ln: dxp.duplex_exact_pallas_batch(
-                a, c, rg, lo_, hi_, np.float32(thr), st, ln,
-                beam_size=beam_size, collapse_repeats=collapse,
-                max_nodes=N, crf=crf, needs_ext=ne,
-                interpret=jax.default_backend() != "tpu",
             ),
             mesh=mesh,
             in_specs=(P(DATA_AXIS),) * 7,
@@ -1138,24 +913,13 @@ def _prep_envelope_batch(ops, envelopes, B, T1, T2, shared_env):
     return los, his, eps
 
 
-def _exact_pallas_ok(We, beam_size, A):
-    """Static eligibility of the fused tree kernel
-    (ops/duplex_exact_pallas.py): band rows are 128-lane vectors and the
-    candidate/entry space is 32 sublanes."""
-    from ..ops import duplex_exact_pallas as dxp
-
-    return We <= dxp.WP - 2 and beam_size <= 8 and beam_size * (A + 1) <= 32
-
-
 def _exact_engine_out(
     dec, l1, l2, root_gap, los, his, lengths, thr, envelopes, shared_env,
-    engine, *, crf, collapse, init_states,
+    *, crf, collapse, init_states,
 ):
-    """Reference-band-reuse decode of a prepared batch: the fused Pallas
-    tree kernel when eligible (engine auto on TPU, or "exact-pallas"),
-    the batched XLA tree engine otherwise.  Reads that overflow the
-    kernel's node budget are re-run on the XLA engine (its budget is the
-    true worst case), so the result is always complete."""
+    """Reference-band-reuse decode of a prepared batch on the batched XLA
+    tree engine (ops/duplex.py), chunked so its band tables fit in device
+    memory."""
     from ..ops import duplex as duplex_ops
 
     B, T1 = los.shape
@@ -1170,79 +934,32 @@ def _exact_engine_out(
     ne = any(e[4] for e in eps)
     Wxe = max(e[5] for e in eps)
     N = duplex_ops._duplex_max_nodes(T1, dec.beam_size, A, We)
-    ok = _exact_pallas_ok(We, dec.beam_size, A)
-    if engine == "exact-pallas" and not ok:
-        raise ValueError(
-            "engine='exact-pallas' needs band width <= 126 and "
-            "beam_size*(n_labels+1) <= 32"
-        )
-    use_pallas = (
-        engine == "exact-pallas"
-        or (dec.engine is None and jax.default_backend() == "tpu" and ok)
-    )
 
-    def xla_out(l1x, l2x, rgx, lox, hix, stx, lnx):
-        # chunk so band tables stay within ~2 GB of HBM per call
-        per_read = N * We * 8
-        n_dev = len(dec.mesh.devices.reshape(-1))
-        chunk = max(int(2e9 // max(per_read, 1)), 1) * n_dev
-        fn = _duplex_exact_xla_fn(
-            dec.mesh, dec.beam_size, collapse, float(thr),
-            N, We, Wre, Wxe, ne, crf,
-        )
-        outs = []
-        # the ~2 GB chunk sizing is a heuristic; if a W/max_nodes miscount
-        # still overflows HBM, catch the device OOM and halve the chunk
-        # instead of aborting the batch
-        s = 0
-        Bx = l1x.shape[0]
-        while s < Bx:
-            e = min(s + chunk, Bx)
-            try:
-                outs.append(
-                    jax.device_get(
-                        fn(
-                            l1x[s:e], l2x[s:e], rgx[s:e], lox[s:e],
-                            hix[s:e], stx[s:e], lnx[s:e],
-                        )
-                    )
-                )
-            except jax.errors.JaxRuntimeError as exc:
-                if "RESOURCE_EXHAUSTED" not in str(exc) or chunk <= n_dev:
-                    raise
-                chunk = max(chunk // 2 - (chunk // 2) % n_dev, n_dev)
-                continue
-            s = e
-        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-
-    if not use_pallas:
-        return xla_out(l1, l2, root_gap, los, his, init_states, lengths)
-
-    fn = _duplex_exact_pallas_fn(
+    # chunk so band tables stay within ~2 GB of device memory per call
+    per_read = N * We * 8
+    n_dev = len(dec.mesh.devices.reshape(-1))
+    chunk = max(int(2e9 // max(per_read, 1)), 1) * n_dev
+    fn = _duplex_exact_xla_fn(
         dec.mesh, dec.beam_size, collapse, float(thr),
-        min(N, 4096), ne, crf,
+        N, We, Wre, Wxe, ne, crf,
     )
-    out = jax.device_get(
-        fn(l1, l2, root_gap, los, his, init_states, lengths)
-    )
-    out = {k: np.array(v) for k, v in out.items()}  # writable copies
-    bad = np.flatnonzero(out["err"] == errors.NODE_OVERFLOW)
-    if len(bad):
-        # pad the overflow subset to a full device batch for the rerun
-        n_dev = len(dec.mesh.devices.reshape(-1))
-        padded = np.concatenate(
-            [bad, np.repeat(bad[-1:], (-len(bad)) % n_dev)]
-        )
-        sub = xla_out(
-            l1[padded], l2[padded], root_gap[padded], los[padded],
-            his[padded], init_states[padded], lengths[padded],
-        )
-        n = len(bad)
-        Tl = out["labels_rev"].shape[1]
-        out["labels_rev"][bad] = sub["labels_rev"][:n, :Tl]
-        out["count"][bad] = sub["count"][:n]
-        out["err"][bad] = sub["err"][:n]
-    return out
+    args = (l1, l2, root_gap, los, his, init_states, lengths)
+    outs = []
+    # the ~2 GB chunk sizing is a heuristic; if a W/max_nodes miscount
+    # still overflows device memory, catch the OOM and halve the chunk
+    # instead of aborting the batch
+    s = 0
+    while s < B:
+        e = min(s + chunk, B)
+        try:
+            outs.append(jax.device_get(fn(*(a[s:e] for a in args))))
+        except jax.errors.JaxRuntimeError as exc:
+            if "RESOURCE_EXHAUSTED" not in str(exc) or chunk <= n_dev:
+                raise
+            chunk = max(chunk // 2 - (chunk // 2) % n_dev, n_dev)
+            continue
+        s = e
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 class BatchCrfDuplexDecoder:
@@ -1283,7 +1000,7 @@ class BatchCrfDuplexDecoder:
         self.beam_size = int(beam_size)
         self.threshold = float(beam_cut_threshold)
         self.mesh = mesh if mesh is not None else make_data_mesh()
-        if engine not in (None, "fast", "exact", "exact-pallas"):
+        if engine not in (None, "fast", "exact"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
 
@@ -1337,10 +1054,10 @@ class BatchCrfDuplexDecoder:
             )
             engine = "fast" if constant_window else "exact"
 
-        if engine in ("exact", "exact-pallas"):
+        if engine == "exact":
             out = _exact_engine_out(
                 self, l1, l2, root_gap, los, his, lengths, thr,
-                envelopes, shared_env, engine, crf=True,
+                envelopes, shared_env, crf=True,
                 collapse=False, init_states=init_states,
             )
             return _assemble_duplex(out, B0, self.alphabet)

@@ -1,12 +1,12 @@
-"""JSON decode service — the TPU-native analog of the reference's WASM/JS
+"""JSON decode service — this engine's analog of the reference's WASM/JS
 binding layer (C2 in SURVEY.md §2).
 
 The reference ships ``js_beam_search`` / ``js_viterbi_search``
 (/root/reference/src/lib.rs:63-140): browser/Node callers pass a flattened
 f32 posterior array + shape + params and get back the JSON string
-``{"seq": ..., "starts": [...]}``.  A WASM build makes no sense for a TPU
-engine, so the non-Python binding surface is a wire protocol instead: the
-same request/response schema over stdin/stdout or HTTP, with decodes
+``{"seq": ..., "starts": [...]}``.  A WASM build makes no sense for an
+accelerator engine, so the non-Python binding surface is a wire protocol
+instead: the same request/response schema over stdin/stdout or HTTP, with decodes
 running on the accelerator.  Unlike the reference's weak error handling
 (it returns the string "Error" and logs — src/lib.rs:78-88), failures are
 typed: input errors (bad params/shape/JSON, search failures on the given
@@ -180,8 +180,8 @@ class MicroBatcher:
     """Coalesce concurrent single-read requests into one device batch.
 
     The reference binding decodes one read per call (src/lib.rs:63-140);
-    on a TPU that wastes the chip — a single T=1000 read uses a fraction
-    of one core.  The micro-batcher holds each single-read (2-d shape)
+    on an accelerator that wastes the device — a single T=1000 read uses
+    a sliver of it.  The micro-batcher holds each single-read (2-d shape)
     request for at most ``max_wait_ms``, stacks every compatible pending
     request (same method/alphabet/params and T bucket) into one [B, Tb, A]
     batch through the cached mesh decoders, then fans results back out.
@@ -396,8 +396,12 @@ def decode_json(request_json: str) -> str:
     return handle_json(request_json)[0]
 
 
-def serve_http(host: str = "127.0.0.1", port: int = 8000, microbatch: bool = False):
+def make_http_server(
+    host: str = "127.0.0.1", port: int = 8000, microbatch: bool = False
+):
     """Threaded stdlib HTTP server: POST / with a request JSON body.
+    Returns the unstarted server (``port=0`` picks a free port); call its
+    ``serve_forever`` and, to stop, ``shutdown``.
 
     Threads overlap host-side JSON/detok work across requests; device
     decodes serialize on the JAX dispatch lock, so throughput-minded
@@ -425,8 +429,13 @@ def serve_http(host: str = "127.0.0.1", port: int = 8000, microbatch: bool = Fal
         def log_message(self, *a):  # quiet
             pass
 
-    httpd = ThreadingHTTPServer((host, port), Handler)
-    print(f"fast_ctc_decode_tpu serving on http://{host}:{port}")
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_http(host: str = "127.0.0.1", port: int = 8000, microbatch: bool = False):
+    """Run ``make_http_server`` until interrupted."""
+    httpd = make_http_server(host, port, microbatch)
+    print(f"fast_ctc_decode_tpu serving on http://{host}:{httpd.server_address[1]}")
     httpd.serve_forever()
 
 
@@ -435,6 +444,9 @@ def main():
     or --http [host:port] for the HTTP server."""
     import sys
 
+    from .device import use_compile_cache
+
+    use_compile_cache()
     args = sys.argv[1:]
     microbatch = "--microbatch" in args
     args = [a for a in args if a != "--microbatch"]

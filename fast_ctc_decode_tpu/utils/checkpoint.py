@@ -1,7 +1,7 @@
 """Checkpoint/resume for long batched decode runs.
 
 The reference has no checkpointing (decodes are single short calls —
-SURVEY.md §5); a TPU pipeline streaming millions of reads needs resumable
+SURVEY.md §5); a device pipeline streaming millions of reads needs resumable
 iteration.  The on-disk format is append-only JSONL so checkpoint cost is
 O(batch) per batch (not O(total) — rewriting the whole result set after
 every batch would make checkpointing quadratic and eventually dominate

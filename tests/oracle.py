@@ -1,6 +1,6 @@
 """Test oracle: a straightforward NumPy re-implementation of the reference
 semantics (/root/reference/src/search.rs, src/duplex.rs), used to validate the
-TPU kernels on random inputs.  All arithmetic is np.float32 in the reference's
+device kernels on random inputs.  All arithmetic is np.float32 in the reference's
 exact operation order.  This is test scaffolding, not product code — it is
 deliberately slow and simple.
 """
@@ -45,11 +45,12 @@ class Tree:
         return out  # leaf -> root
 
 
-def _merge_sort_truncate(beam, beam_size, probability):
+def _merge_sort_truncate(beam, beam_size, probability, on_sorted=None):
     """Dedup-by-node (left-fold += in node-sorted order), NaN check, sort by
     prob desc (stable over node order => ties ascending node id), truncate.
 
     beam: list of dicts with key 'node'. `probability(e)` gives the sort score.
+    `on_sorted`, if given, sees the sorted scores before truncation.
     Returns (beam, 'nan'|'empty'|None). Mutates entries in place.
     """
     beam.sort(key=lambda e: e["node"])  # python sort is stable, like Rust's
@@ -70,14 +71,19 @@ def _merge_sort_truncate(beam, beam_size, probability):
     if len(beam) >= 2 and any(np.isnan(p) for p in probs):
         return beam, "nan"
     beam.sort(key=lambda e: -float(probability(e)))  # stable; f32->f64 exact
+    if on_sorted is not None:
+        on_sorted([probability(e) for e in beam])
     del beam[beam_size:]
     if not beam:
         return beam, "empty"
     return beam, None
 
 
-def beam_search(probs, alphabet, beam_size=5, beam_cut_threshold=0.0, collapse_repeats=True):
-    """Oracle for reference beam_search (src/search.rs:159-301)."""
+def beam_search(probs, alphabet, beam_size=5, beam_cut_threshold=0.0,
+                collapse_repeats=True, on_step=None):
+    """Oracle for reference beam_search (src/search.rs:159-301).
+    ``on_step(t, scores)``, if given, sees step t's merged candidate scores
+    sorted best first, before the beam is cut to ``beam_size``."""
     probs = np.asarray(probs, dtype=np.float32)
     thr = F32(beam_cut_threshold)
     tree = Tree()
@@ -114,7 +120,8 @@ def beam_search(probs, alphabet, beam_size=5, beam_cut_threshold=0.0, collapse_r
                         dict(node=child, lab=F32(F32(lab + gap) * p), gap=F32(0.0))
                     )
         beam, err = _merge_sort_truncate(
-            next_beam, beam_size, lambda e: F32(e["lab"] + e["gap"])
+            next_beam, beam_size, lambda e: F32(e["lab"] + e["gap"]),
+            on_sorted=on_step and (lambda ps, t=idx: on_step(t, ps)),
         )
         if err == "nan":
             raise RuntimeError("Failed to compare values (NaNs in input?)")

@@ -1,10 +1,9 @@
 """Duplex engine policy + batched exact engine tests.
 
-Covers the round-2 exactness resolution: the slot-band (fast/pallas)
-engines' window-rebuild semantics measurably diverge from the reference's
-band reuse on moving-window envelopes, so auto selection is parity-first
-(the bit-exact tree engine, now batched and ~20x faster) with the
-throughput engines as explicit opt-ins.
+Covers the exactness resolution: the slot-band engine's window-rebuild
+semantics measurably diverge from the reference's band reuse on
+moving-window envelopes, so auto selection is parity-first (the bit-exact
+tree engine, batched) with the throughput engine as an explicit opt-in.
 """
 
 import numpy as np
@@ -71,8 +70,8 @@ class TestRebuildDeviationDocumented:
     def test_slot_rebuild_diverges_from_reference_reuse(self):
         """The reason auto cannot pick the fast engine for moving windows:
         on weak-signal data the rebuilt-band semantics genuinely change
-        decoded sequences vs the reference's frozen-band reuse (measured
-        ~87% of random trials in the round-2 study).  If this ever stops
+        decoded sequences vs the reference's frozen-band reuse (~87% of
+        random trials in the original study).  If this ever stops
         diverging, the engine auto-policy should be revisited."""
         diverged = 0
         for seed in (25, 26, 27, 28):

@@ -1,11 +1,6 @@
-"""Crosschecks for the fused reference-band-reuse duplex kernel
-(ops/duplex_exact_pallas.py) against the bit-exact XLA tree engine and the
-NumPy oracle.
-
-These run the kernel in interpret mode on CPU, so shapes stay small; the
-TPU benchmark (tools + PERF.md §4) covers the compiled kernel at the
-W~83 / T=500 workload with an oracle spot-check.
-"""
+"""The batched bit-exact duplex tree engine (ops/duplex.py
+``duplex_exact_batch``, reference band-reuse semantics) and the decoders
+that route moving-window envelopes to it, against the NumPy oracle."""
 
 import numpy as np
 import pytest
@@ -14,8 +9,11 @@ import oracle
 from duplex_helpers import diag_env, random_data
 from fast_ctc_decode_tpu import beam_search_duplex
 from fast_ctc_decode_tpu.ops import duplex as duplex_ops
-from fast_ctc_decode_tpu.ops import duplex_exact_pallas as dxp
-from fast_ctc_decode_tpu.parallel.pipeline import BatchDuplexDecoder
+from fast_ctc_decode_tpu import errors
+from fast_ctc_decode_tpu.parallel.pipeline import (
+    BatchCrfDuplexDecoder,
+    BatchDuplexDecoder,
+)
 
 
 def _prep(n1, n2, env, B, thr_lin):
@@ -44,6 +42,15 @@ def _seqs(out, B, alphabet="NACGT"):
     return res
 
 
+def _exact(l1, l2, rg, los, his, thr, inits, lens, *, N, W, Wr, Wext, ne,
+           crf=False, collapse=True):
+    return duplex_ops.duplex_exact_batch(
+        l1, l2, rg, los, his, thr, inits, lens,
+        beam_size=5, collapse_repeats=collapse, max_nodes=N, W=W, Wr=Wr,
+        Wext=Wext, needs_ext=ne, crf=crf,
+    )
+
+
 def test_moving_window_matches_exact_engine():
     T1, T2, B = 12, 14, 3
     env = diag_env(T1, T2, 3)
@@ -53,20 +60,10 @@ def test_moving_window_matches_exact_engine():
     lens = np.full((B,), T1, np.int32)
     inits = np.zeros((B,), np.int32)
     N = duplex_ops._duplex_max_nodes(T1, 5, 4, W)
-
-    ref = duplex_ops.duplex_exact_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=N, W=W, Wr=Wr,
-        Wext=Wext, needs_ext=ne, crf=False,
-    )
-    got = dxp.duplex_exact_pallas_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=min(N, 2048),
-        crf=False, needs_ext=ne, interpret=True,
-    )
-    assert _seqs(got, B) == _seqs(ref, B)
-    assert list(np.asarray(got["err"])) == list(np.asarray(ref["err"]))
-    # band-reuse semantics: the oracle agrees too
+    got = _exact(l1, l2, rg, los, his, thr, inits, lens,
+                 N=N, W=W, Wr=Wr, Wext=Wext, ne=ne)
+    assert list(np.asarray(got["err"])) == [0] * B
+    # band-reuse semantics: the oracle agrees
     for b in range(B):
         want = oracle.beam_search_duplex(n1[b], n2[b], "NACGT", env, 5, 0.0)
         assert _seqs(got, B)[b] == want, b
@@ -75,29 +72,19 @@ def test_moving_window_matches_exact_engine():
 def test_divergence_prone_case_reproduces_band_reuse():
     """On the weak-signal moving-window class where the slot-band fast
     engine measurably diverges from reference band reuse
-    (test_duplex_engines.py), the fused tree kernel must side with the
-    exact engine."""
+    (test_duplex_engines.py), the batch decoder's automatic choice must
+    side with the exact engine."""
     T1, T2 = 30, 34
     env = diag_env(T1, T2, 4)
     seeds = (25, 26)
-    B = len(seeds)
     n1 = np.stack([random_data(T1, 4, s) for s in seeds])
     n2 = np.stack([random_data(T2, 4, 1000 + s) for s in seeds])
-    l1, l2, rg, los, his, thr, W, Wr, Wext, ne = _prep(n1, n2, env, B, 0.0)
-    lens = np.full((B,), T1, np.int32)
-    inits = np.zeros((B,), np.int32)
-    N = duplex_ops._duplex_max_nodes(T1, 5, 3, W)
-    got = dxp.duplex_exact_pallas_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=min(N, 2048),
-        crf=False, needs_ext=ne, interpret=True,
-    )
-    seqs = _seqs(got, B, "NACG")
+    res = BatchDuplexDecoder("NACG", T1=T1, T2=T2).decode(n1, n2, envelopes=env)
     diverged = 0
-    for b, s in enumerate(seeds):
+    for b in range(len(seeds)):
         e = beam_search_duplex(n1[b], n2[b], "NACG", envelope=env, engine="exact")
         f = beam_search_duplex(n1[b], n2[b], "NACG", envelope=env, engine="fast")
-        assert seqs[b] == e, b
+        assert res[b] == (e, 0), b
         diverged += f != e
     assert diverged > 0  # the case actually exercises band reuse
 
@@ -137,17 +124,8 @@ def test_crf_moving_window_matches_exact_engine():
     inits = np.argmax(i1, axis=1).astype(np.int32)
     N = duplex_ops._duplex_max_nodes(T1, 5, A1 - 1, W)
 
-    ref = duplex_ops.duplex_exact_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=False, max_nodes=N, W=W, Wr=Wr,
-        Wext=Wext, needs_ext=ne, crf=True,
-    )
-    got = dxp.duplex_exact_pallas_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=False, max_nodes=min(N, 2048),
-        crf=True, needs_ext=ne, interpret=True,
-    )
-    assert _seqs(got, B) == _seqs(ref, B)
+    got = _exact(l1, l2, rg, los, his, thr, inits, lens, N=N, W=W, Wr=Wr,
+                 Wext=Wext, ne=ne, crf=True, collapse=False)
     for b in range(B):
         want = oracle.crf_beam_search_duplex(
             n1[b], i1[b], n2[b], i2[b], "NACGT", env, beam_size=5
@@ -155,7 +133,7 @@ def test_crf_moving_window_matches_exact_engine():
         assert _seqs(got, B)[b] == want, b
 
 
-def test_node_overflow_status_and_pipeline_fallback(monkeypatch):
+def test_node_overflow_status_and_pipeline_fallback():
     T1, T2, B = 12, 14, 8
     env = diag_env(T1, T2, 3)
     n1 = np.stack([random_data(T1, 4, 40 + i) for i in range(B)])
@@ -165,38 +143,27 @@ def test_node_overflow_status_and_pipeline_fallback(monkeypatch):
     inits = np.zeros((B,), np.int32)
 
     # a 4-node budget must blow and report per-read NODE_OVERFLOW
-    out = dxp.duplex_exact_pallas_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=4,
-        crf=False, needs_ext=ne, interpret=True,
-    )
-    from fast_ctc_decode_tpu import errors
-
+    out = _exact(l1, l2, rg, los, his, thr, inits, lens,
+                 N=4, W=W, Wr=Wr, Wext=Wext, ne=ne)
     assert all(int(e) == errors.NODE_OVERFLOW for e in np.asarray(out["err"]))
 
-    # the pipeline reruns overflow reads on the XLA tree engine: force the
-    # kernel to report overflow for every read and check the final result
-    # still matches engine="exact"
-    real = dxp.duplex_exact_pallas_batch
-
-    def tiny_budget(*args, **kwargs):
-        kwargs["max_nodes"] = 4
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(dxp, "duplex_exact_pallas_batch", tiny_budget)
-    dec = BatchDuplexDecoder("NACG", T1=T1, T2=T2, engine="exact-pallas")
-    res = dec.decode(n1, n2, envelopes=env)
-    want = BatchDuplexDecoder("NACG", T1=T1, T2=T2, engine="exact").decode(
+    # the pipeline sizes the budget for the worst case: no overflow, and
+    # every pair equals the oracle
+    res = BatchDuplexDecoder("NACG", T1=T1, T2=T2, engine="exact").decode(
         n1, n2, envelopes=env
     )
-    assert res == want
+    for b in range(B):
+        want = oracle.beam_search_duplex(n1[b], n2[b], "NACG", env, 5, 0.0)
+        assert res[b] == (want, 0), b
 
 
 def test_engine_validation():
-    with pytest.raises(ValueError):
-        BatchDuplexDecoder("NACG", T1=8, T2=8, engine="bogus")
-    dec = BatchDuplexDecoder("NACG", T1=8, T2=8, beam_size=8, engine="exact-pallas")
-    # K*(A+1) = 8*4 = 32 fits; a 9-beam would not even construct the kernel
+    for bad in ("bogus", "pallas", "exact-pallas"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            BatchDuplexDecoder("NACG", T1=8, T2=8, engine=bad)
+        with pytest.raises(ValueError, match="unknown engine"):
+            BatchCrfDuplexDecoder("NACG", T1=8, T2=8, n_state=4, engine=bad)
+    dec = BatchDuplexDecoder("NACG", T1=8, T2=8, beam_size=8, engine="exact")
     n1 = np.stack([random_data(8, 4, 1)])
     n2 = np.stack([random_data(8, 4, 2)])
     env = diag_env(8, 8, 2)
@@ -209,9 +176,7 @@ def test_engine_validation():
 def test_zero_probability_step_keeps_beam():
     """A valid beam entry whose log score is exactly -inf (an all-zero
     probability step) must stay selectable: the reference keeps it in the
-    beam (only the absence of a push empties a slot).  Regression for the
-    kernel mapping -inf scores to the invalid selection fill, which
-    spuriously reported RAN_OUT_OF_BEAM."""
+    beam (only the absence of a push empties a slot)."""
     T1, T2, B = 5, 6, 2
     env = diag_env(T1, T2, 2)
     n1 = np.stack([random_data(T1, 5, i) for i in range(B)])
@@ -221,29 +186,32 @@ def test_zero_probability_step_keeps_beam():
     lens = np.full((B,), T1, np.int32)
     inits = np.zeros((B,), np.int32)
     N = duplex_ops._duplex_max_nodes(T1, 5, 4, W)
-
-    ref = duplex_ops.duplex_exact_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=N, W=W, Wr=Wr,
-        Wext=Wext, needs_ext=ne, crf=False,
-    )
-    out = dxp.duplex_exact_pallas_batch(
-        l1, l2, rg, los, his, thr, inits, lens,
-        beam_size=5, collapse_repeats=True, max_nodes=min(N, 4096),
-        crf=False, needs_ext=ne, interpret=True,
-    )
-    assert np.asarray(ref["err"]).tolist() == [0, 0]
+    out = _exact(l1, l2, rg, los, his, thr, inits, lens,
+                 N=N, W=W, Wr=Wr, Wext=Wext, ne=ne)
     assert np.asarray(out["err"]).tolist() == [0, 0]
-    assert _seqs(out, B) == _seqs(ref, B)
+    for b in range(B):
+        want = oracle.beam_search_duplex(n1[b], n2[b], "NACGT", env, 5, 0.0)
+        assert _seqs(out, B)[b] == want, b
 
 
-def test_max_nodes_packing_limit_rejected():
-    with pytest.raises(ValueError, match="max_nodes"):
-        dxp.duplex_exact_pallas_batch(
-            np.zeros((1, 4, 5), np.float32), np.zeros((1, 4, 5), np.float32),
-            np.zeros((1, 2), np.float32), np.zeros((1, 4), np.int32),
-            np.full((1, 4), 2, np.int32), np.float32(-1.0),
-            np.zeros((1,), np.int32), np.full((1,), 4, np.int32),
-            beam_size=5, collapse_repeats=True, max_nodes=10000,
-            crf=False, needs_ext=False, interpret=True,
+def test_crf_duplex_auto_moving_window():
+    """The CRF duplex decoder routes a moving window to the tree engine by
+    itself, and that route equals the oracle."""
+    S, A1, T1, T2, B = 8, 5, 10, 12, 2
+    env = diag_env(T1, T2, 3)
+    rng = np.random.RandomState(31)
+
+    def mk(T):
+        x = rng.rand(B, T, S, A1).astype(np.float32)
+        return x / x.sum(-1, keepdims=True)
+
+    n1, n2 = mk(T1), mk(T2)
+    i1 = rng.rand(B, S).astype(np.float32)
+    i2 = rng.rand(B, S).astype(np.float32)
+    dec = BatchCrfDuplexDecoder("NACGT", T1=T1, T2=T2, n_state=S)
+    res = dec.decode(n1, i1, n2, i2, envelopes=env)
+    for b in range(B):
+        want = oracle.crf_beam_search_duplex(
+            n1[b], i1[b], n2[b], i2[b], "NACGT", env, beam_size=5
         )
+        assert res[b] == (want, 0), b

@@ -19,6 +19,7 @@ _WORKER = r"""
 import os, sys
 sys.path.insert(0, {repo!r})
 pid = int(sys.argv[1]); nproc = int(sys.argv[2]); port = sys.argv[3]
+# every child stays on the CPU: a GPU serves one JAX process
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import numpy as np

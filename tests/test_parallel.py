@@ -147,7 +147,8 @@ def test_graft_entry_multichip():
 def test_wide_alphabet_both_engines():
     """The reference long-alphabet case (A1=12 — reference
     tests/test_decode.py:101-107 analog) must decode through
-    BatchBeamDecoder on both the XLA and the fused Pallas backends."""
+    BatchBeamDecoder on both the XLA engine and the fused Triton kernel
+    (interpret mode here)."""
     import oracle
 
     rng = np.random.RandomState(11)
@@ -162,7 +163,8 @@ def test_wide_alphabet_both_engines():
     ]
     for engine in ("fast", "pallas"):
         dec = BatchBeamDecoder(
-            alphabet, T=T, beam_size=5, beam_cut_threshold=0.0, engine=engine
+            alphabet, T=T, beam_size=5, beam_cut_threshold=0.0, engine=engine,
+            interpret=engine == "pallas",
         )
         res = dec.decode(probs, lengths)
         for i in range(B):

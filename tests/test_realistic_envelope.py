@@ -9,8 +9,8 @@ and pins all three engines on it:
 
  - the XLA fast (rel-window) engine's W/Wext replay sizing
    (duplex_fast._prep_envelope_fast) against the tree engine,
- - the fused band-reuse kernel (ops/duplex_exact_pallas) against the
-   tree engine and the NumPy oracle.
+ - the batch decoder's automatic route for it (the batched tree engine)
+   against the NumPy oracle.
 """
 
 import numpy as np
@@ -72,14 +72,14 @@ def test_jagged_envelope_fast_vs_exact_constant_free():
 
 
 def test_jagged_envelope_band_reuse_kernel():
-    """The fused tree kernel decodes jagged alignment envelopes with
-    reference band-reuse semantics (oracle-equal), via the pipeline's
-    engine='exact-pallas' (interpret mode on the CPU mesh)."""
+    """The batch decoder routes jagged alignment envelopes to the tree
+    engine on its own and decodes them with reference band-reuse
+    semantics (oracle-equal)."""
     T1, T2, B = 16, 18, 8
     env = jagged_env(T1, T2, 11, base_w=4, jitter=2)
     n1 = np.stack([random_data(T1, 4, 60 + i) for i in range(B)])
     n2 = np.stack([random_data(T2, 4, 160 + i) for i in range(B)])
-    dec = BatchDuplexDecoder("NACG", T1=T1, T2=T2, engine="exact-pallas")
+    dec = BatchDuplexDecoder("NACG", T1=T1, T2=T2)
     res = dec.decode(n1, n2, envelopes=env)
     for i in range(B):
         seq, err = res[i]

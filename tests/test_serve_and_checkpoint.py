@@ -294,7 +294,8 @@ class TestServeDecoderCache:
         (key,) = serve._DECODER_CACHE
         assert key[2] == 128
         # padding to the bucket edge must not change the decode (the batch
-        # pipeline runs the fast engine off-TPU, so compare to its contract)
+        # pipeline runs the fast engine on the CPU, so compare to its
+        # contract)
         for reads, out in results:
             for i, r in enumerate(out["results"]):
                 seq, starts = beam_search(
@@ -553,36 +554,16 @@ class TestDecodeManyCrf:
 class TestHttpEndToEnd:
     def test_http_server_microbatch_roundtrip(self):
         import http.client
-        import socket
         import threading
-        import time as _time
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         from fast_ctc_decode_tpu import serve
 
-        # build the server exactly like serve_http, but on a free port and
-        # shut down cleanly from the test
+        # the server serve_http runs, on a free port, shut down cleanly
+        # from the test
         serve.enable_microbatching(max_wait_ms=150.0)
         try:
-            class Handler(BaseHTTPRequestHandler):
-                def do_POST(self):
-                    length = int(self.headers.get("Content-Length", 0))
-                    body = self.rfile.read(length).decode("utf-8")
-                    out, code = serve.handle_json(body)
-                    data = out.encode("utf-8")
-                    self.send_response(code)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(data)))
-                    self.end_headers()
-                    self.wfile.write(data)
-
-                def log_message(self, *a):
-                    pass
-
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", 0))
-                port = s.getsockname()[1]
-            httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+            httpd = serve.make_http_server("127.0.0.1", 0)
+            port = httpd.server_address[1]
             t = threading.Thread(target=httpd.serve_forever, daemon=True)
             t.start()
             try:

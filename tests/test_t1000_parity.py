@@ -3,9 +3,9 @@
 The oracle crosschecks elsewhere run at T<=60; this pins the *benchmark*
 configuration (T=1000, A1=5, beam=5, cut=0.1 — BASELINE.json) so a
 regression that only shows up at depth (renormalization drift, id-log
-overflow, traceback at scale) cannot ship.  bench.py runs the same check
-as a hard gate on the TPU (BENCH_PARITY_READS); this copy is CI-runnable
-on the CPU mesh.
+overflow, traceback at scale) cannot ship.  bench.py and chip_smoke.py run
+the same check as a hard gate on the GPU; this copy is CI-runnable on the
+CPU mesh.
 """
 
 import numpy as np
@@ -44,8 +44,8 @@ def test_t1000_parity_fast_engine():
 
 
 def test_t1000_parity_pallas_engine():
-    # interpret mode on CPU is slow, so fewer reads; the TPU bench gate
-    # (bench.py) covers the compiled kernel at 8 reads every round
+    # interpret mode on CPU is slow, so fewer reads; chip_smoke.py's gate
+    # covers the compiled kernel at 64 reads on the card
     B, T = 2, 1000
     probs = _reads(B, T, seed=321)
     out = beam_pallas.beam_search_pallas_batch(
